@@ -1,19 +1,28 @@
-# Developer entry points (the check.yml analogue: test gate, slow conformance,
-# bench, native build).
+# Developer entry points (the check.yml analogue: test gate, GPU smoke,
+# slow conformance, bench, native build).
 
-.PHONY: lint test test-tpu test-slow fuzz multihost bigscan bench bench-competitors breakeven conformance native clean
+.PHONY: lint test smoke smoke-4 kernel-ab test-gpu test-slow fuzz multihost bigscan bench bench-competitors breakeven conformance native clean
 
 lint:
 	python scripts/lint.py
 
 test:
-	python -m pytest tests/ -x -q -m "not slow"
+	JAX_PLATFORMS=cpu python -m pytest tests/ -x -q -m "not slow"
 
-test-tpu:
-	SLICESLICE_TEST_TPU=1 python -m pytest tests/ -q -m "not slow"
+smoke:
+	python chip_smoke.py
+
+smoke-4:
+	python chip_smoke.py --cards 4
+
+kernel-ab:
+	python scripts/kernel_ab.py
+
+test-gpu:
+	python -m pytest tests/ -q -m gpu
 
 test-slow:
-	SLICESLICE_TEST_TPU=1 python -m pytest tests/ -q -m slow
+	python -m pytest tests/ -q -m slow
 
 fuzz:
 	python scripts/fuzz_campaign.py
@@ -26,8 +35,6 @@ bigscan:
 
 bench:
 	python bench.py
-	python scripts/update_readme_bench.py
-	python scripts/make_benchmarks_svg.py
 
 bench-competitors:
 	python benchmarks/competitors.py
@@ -42,4 +49,4 @@ native:
 	python -c "from sliceslice_tpu.utils import native; assert native.available()"
 
 clean:
-	rm -rf csrc/build .pytest_cache $(shell find . -name __pycache__)
+	rm -rf csrc/build .pytest_cache .jax_cache $(shell find . -name __pycache__)

@@ -9,14 +9,15 @@ Rows:
                                  (sse4-strstr-wrapper analogue)
 * native Two-Way (C++)        — from-scratch Crochemore-Perrin
                                  (twoway/memmem competitor row analogue)
-* sliceslice_tpu batched      — the TPU framework, sustained
-* sliceslice_tpu pairwise     — the TPU short-sweep kernel
+* sliceslice batched          — this framework on the GPU, sustained
+* sliceslice pairwise         — the GPU short-sweep kernel
 
 ``collect_host()`` returns the same-host CPU rows structured so bench.py
-can record them per round next to its own measured TPU rows
-(VERDICT r4 item 5 — the reference publishes this table, README.md:28-40).
+can record them next to its own GPU rows (the reference publishes this
+table, README.md:28-40).
 
-Usage: python benchmarks/competitors.py  (markdown table to stdout).
+Usage: python benchmarks/competitors.py  (markdown table to stdout; fails
+without a GPU).
 """
 
 import os
@@ -87,9 +88,10 @@ def main():
     from sliceslice_tpu.ops.pairwise import PairwiseSearcher
     from sliceslice_tpu.utils import native
 
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit("competitors.py needs a GPU for its device rows")
     hay, words = _corpus()
     ws = sorted(words, key=len)
-    on_tpu = jax.default_backend() == "tpu"
 
     rows = []
 
@@ -107,24 +109,24 @@ def main():
             ("native Two-Way (C++)",
              fmt(timed(lambda: native.twoway_find_batch(hay, words))))
         )
-    if on_tpu:
-        dh = st.preprocess(hay, kh=24, seg_rows=1024)
-        bs = st.BatchedSearcher(words)
-        bs.find_all(dh)
-        def sustained(k=8):
-            for _ in range(k - 1):
-                bs.find_all_device(dh)
-            bs.find_all_device(dh).block_until_ready()
+    dh = st.preprocess(hay, kh=24)
+    bs = st.BatchedSearcher(words)
+    bs.find_all(dh)
 
-        t = timed(sustained)
-        rows.append(
-            ("sliceslice_tpu batched (sustained, per sweep)",
-             fmt(tuple(x / 8 for x in t)))
-        )
-        rows.append(
-            ("sliceslice_tpu batched (one-shot + readback)",
-             fmt(timed(lambda: bs.find_all(dh))))
-        )
+    def sustained(k=8):
+        for _ in range(k - 1):
+            bs.find_all_device(dh)
+        bs.find_all_device(dh).block_until_ready()
+
+    t = timed(sustained)
+    rows.append(
+        ("sliceslice batched (sustained, per sweep)",
+         fmt(tuple(x / 8 for x in t)))
+    )
+    rows.append(
+        ("sliceslice batched (one-shot + readback)",
+         fmt(timed(lambda: bs.find_all(dh))))
+    )
 
     # --- short haystack: all ~10.5M word pairs ---------------------------
     rows.append(("**short haystack** (ref sliceslice: 79.28/79.42/79.60 ms)", ""))
@@ -133,13 +135,12 @@ def main():
             ("native SWAR (C++) all-pairs",
              fmt(timed(lambda: native.swar_pairwise(ws), warmup=0, samples=1)))
         )
-    if on_tpu:
-        ps = PairwiseSearcher(ws)
-        int(ps.count_matches_device())
-        rows.append(
-            ("sliceslice_tpu pairwise",
-             fmt(timed(lambda: ps.count_matches_device().block_until_ready())))
-        )
+    ps = PairwiseSearcher(ws)
+    int(ps.count_matches_device())
+    rows.append(
+        ("sliceslice pairwise",
+         fmt(timed(lambda: ps.count_matches_device().block_until_ready())))
+    )
 
     width = max(len(r[0]) for r in rows)
     print(f"| {'implementation':<{width}} | time (low/median/high) |")

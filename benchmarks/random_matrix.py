@@ -2,14 +2,14 @@
 
 Needle sizes {1, 5, 10, 20, 50, 100, 1000} (prefixes of data/needle) x
 haystack sizes >= needle (prefixes of the 1000-byte data/haystack), single
-``search_in`` per combination.  Reported per-search; for the TPU this is the
-latency regime (dispatch + readback dominate a sub-microsecond scan) — the
-batched/pairwise benches are the throughput regime.  Both are reported
-honestly; correctness is asserted against the oracle for every cell.
+``find`` per combination through ``DynamicSearcher`` — at these sizes its
+host SWAR rung (``models/dynamic.HOST_HAY_BYTES``), so ``dynamic_us`` is a
+host time; a device column is not measured yet.  Correctness is asserted
+against the oracle for every cell.
 
 ``collect()`` returns the matrix as structured rows so ``bench.py`` can
-record it per round in BENCH_DETAIL_rNN.json (VERDICT r4 item 5 — the
-reference records this matrix with criterion, bench/benches/random.rs:12-118).
+record it (the reference records this matrix with criterion,
+bench/benches/random.rs:12-118).
 
 Usage: python benchmarks/random_matrix.py
 """
@@ -27,7 +27,7 @@ HAY_SIZES = (1, 5, 10, 20, 50, 100, 1000)
 
 def collect() -> list:
     """Run every cell; returns rows of
-    {needle, haystack, match, py_us, swar_us, tpu_us} (NaN-free: absent
+    {needle, haystack, match, py_us, swar_us, dynamic_us} (NaN-free: absent
     competitors omit their key)."""
     import sliceslice_tpu as st
     from sliceslice_tpu.utils import native
@@ -68,20 +68,20 @@ def collect() -> list:
             t0 = time.perf_counter()
             for _ in range(3):
                 searcher.find(hay)
-            row["tpu_us"] = round((time.perf_counter() - t0) / 3 * 1e6, 0)
+            row["dynamic_us"] = round((time.perf_counter() - t0) / 3 * 1e6, 0)
             rows.append(row)
     return rows
 
 
 def main():
     rows = collect()
-    print("| needle | haystack | match | python find | SWAR | tpu dynamic |")
+    print("| needle | haystack | match | python find | SWAR | DynamicSearcher |")
     print("|--------|----------|-------|-------------|------|-------------|")
     for r in rows:
         print(
             f"| {r['needle']} | {r['haystack']} | {r['match']} "
             f"| {r['py_us']:.2f} us | {r.get('swar_us', float('nan')):.2f} us "
-            f"| {r['tpu_us']:.0f} us |"
+            f"| {r['dynamic_us']:.0f} us |"
         )
 
 

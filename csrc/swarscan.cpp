@@ -1,7 +1,7 @@
 // swarscan: portable SWAR (SIMD-within-a-register) substring scanner.
 //
 // Role: the native CPU competitor baseline + fast host-side oracle for the
-// TPU framework's benchmarks — the counterpart of the reference's
+// framework's benchmarks and checks — the counterpart of the reference's
 // benchmark-only C++ sse4-strstr wrapper (bench/sse4-strstr/src/wrapper.cpp),
 // re-implemented from scratch with 64-bit SWAR instead of AVX2 intrinsics so
 // it runs on any little-endian host CPU (the lane extraction maps mask

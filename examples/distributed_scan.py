@@ -1,10 +1,11 @@
 """Example: sharded corpus scan over a device mesh.
 
-Default: single host with 8 virtual CPU devices.  On a real pod slice run
-with SLICESLICE_EXAMPLE_TPU=1 (and call parallel.distributed.initialize()
+Runs on every device JAX finds: the GPUs of a machine, or 8 virtual CPU
+devices with ``JAX_PLATFORMS=cpu`` (call parallel.distributed.initialize()
 first for multi-host):
 
     python examples/distributed_scan.py
+    JAX_PLATFORMS=cpu python examples/distributed_scan.py
 """
 
 import os
@@ -14,11 +15,8 @@ sys.path.insert(0, ".")
 
 import jax
 
-# Device-count config must be set BEFORE any backend-initializing jax call
-# (probing jax.default_backend() here would initialize it), so the real-TPU
-# path is an env opt-in rather than autodetection.
-if os.environ.get("SLICESLICE_EXAMPLE_TPU") != "1":
-    jax.config.update("jax_platforms", "cpu")
+# The device count must be set before any backend-initializing jax call.
+if os.environ.get("JAX_PLATFORMS") == "cpu":
     jax.config.update("jax_num_cpu_devices", 8)
 
 import numpy as np

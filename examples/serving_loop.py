@@ -1,7 +1,7 @@
 """Example: sustained query serving — the production throughput pattern.
 
-The host<->device link's readback latency (~28 ms here) dwarfs a sweep's
-device time (~4 ms), so a serving loop keeps results on device, pipelines
+Every device->host readback costs a round trip that a sweep's device time
+need not wait for, so a serving loop keeps results on device, pipelines
 query batches with async dispatch, and syncs once per drain interval:
 
     python examples/serving_loop.py

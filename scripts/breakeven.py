@@ -1,4 +1,4 @@
-"""Measure the optimize_for break-even point (dev tool, TPU).
+"""Measure the optimize_for break-even point (dev tool, GPU).
 
 ``BatchedSearcher.optimize_for`` reorders group rows by first-match offsets;
 since r4 the scatter order and probe tables are kernel OPERANDS, so the
@@ -6,14 +6,13 @@ reschedule itself is a host permute + async device uploads — zero
 recompiles, zero device readbacks.  Two protocols on the i386 word workload
 (4,585 needles x 857 KB):
 
-  cold      — optimize_for(dh): pays ONE measuring sweep (device scan +
-              the host link's ~28 ms readback floor);
+  cold      — optimize_for(dh): pays ONE measuring sweep (device scan,
+              no readback);
   piggyback — optimize_for(dh, firsts): a serving loop already holds the
               last sweep's results, so the reschedule is pure overhead.
 
 For each: t_base (ms/sweep before), c_opt (one-shot cost), t_opt (after),
-N* = c_opt / (t_base - t_opt) sweeps to break even.  Numbers go in
-docs/API.md (VERDICT r2 item 8, r3 item 3).
+N* = c_opt / (t_base - t_opt) sweeps to break even.
 
 Usage: python scripts/breakeven.py
 """

@@ -1,22 +1,18 @@
-"""Full i386 conformance sweep -> CONFORMANCE_rNN.json (driver artifact).
+"""Full i386 conformance sweep on the GPU.
 
 The reference's CI RUNS the complete conformance corpus on every push
-(/root/reference/tests/i386.rs:46-70): every word of the 4,585-word
-dictionary searched in every same-or-longer word (~10.5M ordered pairs),
-and every word searched in the 857,425-byte i386 manual.  This script is
-that run as a machine-checkable per-round artifact: both sweeps execute in
-FULL on the device and are compared against the host ``bytes.find`` oracle
-at first-match-OFFSET granularity (a strict superset of the reference's
-bool assertions — BASELINE.json demands offsets).
+(tests/i386.rs:46-70): every word of the 4,585-word dictionary searched in
+every same-or-longer word (~10.5M ordered pairs), and every word searched
+in the 857,425-byte i386 manual.  This script runs both sweeps in FULL on
+the device and compares them against the host ``bytes.find`` oracle at
+first-match-OFFSET granularity (a strict superset of the reference's bool
+assertions — BASELINE.json demands offsets).  It prints one JSON object:
 
-Writes ``CONFORMANCE_rNN.json``:
+    {"short_pairs": ..., "short_mismatches": 0, "short_total_checked": ...,
+     "long_words": 4585, "long_mismatches": 0, "device": {...}}
 
-    {"round": N, "short_pairs": ..., "short_mismatches": 0,
-     "short_total_checked": ..., "long_words": 4585, "long_mismatches": 0,
-     "platform": "tpu"}
-
-Run standalone (``make conformance``) or from ``bench.py`` (every driver
-bench run emits the artifact from the same session).
+and fails without a GPU or on any mismatch.  ``bench.py`` runs the same
+sweeps in-process.
 """
 
 import json
@@ -30,40 +26,18 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def next_round() -> int:
-    """Current round number: one past the newest recorded BENCH artifact."""
-    rounds = [0]
-    for f in os.listdir(REPO):
-        if f.startswith("BENCH_r") and f.endswith(".json"):
-            try:
-                rounds.append(int(f[len("BENCH_r"):-len(".json")]))
-            except ValueError:
-                pass
-    return max(rounds) + 1
-
-
-def run_conformance(full: bool = True, round_no: int | None = None) -> dict:
-    """Execute both sweeps; returns the artifact dict (does not write).
-
-    ``round_no``: the round to label the artifact with.  Callers that also
-    write BENCH artifacts (bench.py) compute it ONCE up front and pass it
-    here — inferring it again later would relabel reruns with the next
-    round number (ADVICE r4)."""
+def run_conformance() -> dict:
+    """Execute both sweeps; returns the result dict."""
     import jax
 
     import sliceslice_tpu as st
     from sliceslice_tpu.ops.pairwise import PairwiseSearcher
 
-    platform = jax.default_backend()
     hay = open(os.path.join(REPO, "data/i386.txt"), "rb").read()
     words = [
         w for w in open(os.path.join(REPO, "data/words.txt"), "rb")
         .read().split(b"\n") if w
     ]
-    if not full:
-        # CPU-interpreter smoke slice (CI): same code path, reduced corpus.
-        words = words[:96]
-        hay = hay[: 96 * 1024]
 
     # Long sweep: all words x the manual, offsets.
     dh = st.preprocess(hay, kh=24)
@@ -85,9 +59,11 @@ def run_conformance(full: bool = True, round_no: int | None = None) -> dict:
     short_mm = int((got_short != exp_short).sum())
 
     return {
-        "round": next_round() if round_no is None else int(round_no),
-        "platform": platform,
-        "full": bool(full),
+        "device": {
+            "platform": jax.devices()[0].platform,
+            "kind": jax.devices()[0].device_kind,
+            "count": len(jax.devices()),
+        },
         "long_words": len(words),
         "long_mismatches": long_mm,
         "short_words": len(ws),
@@ -97,25 +73,13 @@ def run_conformance(full: bool = True, round_no: int | None = None) -> dict:
     }
 
 
-def write_artifact(result: dict) -> str:
-    path = os.path.join(REPO, f"CONFORMANCE_r{result['round']:02d}.json")
-    with open(path, "w") as f:
-        json.dump(result, f, indent=1)
-        f.write("\n")
-    return path
-
-
 def main():
     import jax
 
-    full = jax.default_backend() == "tpu" or "--full" in sys.argv
-    round_no = None
-    if "--round" in sys.argv:
-        round_no = int(sys.argv[sys.argv.index("--round") + 1])
-    result = run_conformance(full=full, round_no=round_no)
-    path = write_artifact(result)
+    if jax.devices()[0].platform != "gpu":
+        raise SystemExit("conformance.py needs a GPU")
+    result = run_conformance()
     print(json.dumps(result))
-    print(f"wrote {path}", file=sys.stderr)
     if result["long_mismatches"] or result["short_mismatches"]:
         sys.exit(1)
 

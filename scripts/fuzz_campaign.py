@@ -1,9 +1,9 @@
 """Extended randomized differential fuzz of the real device kernels.
 
 Complements tests/test_fuzz.py (hypothesis, CPU interpreter): this drives
-the REAL compiled kernels (or the interpreter when no TPU is attached)
-through the package boundary with heavily randomized content over a few
-fixed layout shapes (fixed shapes bound Mosaic compile count; content,
+the compiled kernels on a GPU (the interpreter on the CPU) through the
+package boundary with heavily randomized content over a few fixed layout
+shapes (fixed shapes bound the kernel compile count; content,
 needle placement, and API choice carry the randomness).
 
 Per trial mix: present-at-random-offset, single-byte-mutated (absent),

@@ -44,7 +44,7 @@ def worker(port: int, pid: int) -> None:
 
     import numpy as np
 
-    import sliceslice_tpu  # noqa: F401  (config side effects: interpret mode)
+    import sliceslice_tpu  # noqa: F401
     from sliceslice_tpu.needle import MAX_NEEDLE_LEN, build_probe_table
     from sliceslice_tpu.ops.layout import LANES, round_up
     from sliceslice_tpu.parallel import (

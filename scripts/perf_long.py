@@ -1,13 +1,15 @@
-"""Perf iteration harness for the long-sweep kernel (dev tool, TPU).
+"""Perf iteration harness for the long-sweep kernel (dev tool, GPU).
 
-Times three found-offset regimes of the batched find kernel so kernel
-changes can be judged against the decomposition in docs/DESIGN.md:
+Times four found-offset regimes of the batched find kernel so a kernel
+change can be judged per regime:
 
 * real      — the actual 4,585 dictionary words (the headline workload);
-* floor     — synthetic needles that all match in segment 0 (isolates the
-              per-needle scalar dispatch + one-segment vector cost);
+* floor     — synthetic needles that all match in segment 0 (the
+              one-segment cost of every block);
 * fullscan  — synthetic needles that never match (every block walks all
-              segments: pure vector-throughput regime).
+              segments: pure compare-throughput regime);
+* sparse    — one never-found needle per kernel block among floor needles
+              (every block walks every segment for one needle).
 
 Usage: python scripts/perf_long.py [K]
 """
@@ -60,13 +62,11 @@ def main():
     fullscan = [bytes([0xFF]) + bytes(rng.integers(1, 255, 7).tolist())
                 for _ in range(len(words))]
 
-    # sparse: one never-found needle per kernel block (config.NEEDLE_BLOCK
-    # rows) — every block walks every segment but with ~zero probe work:
-    # isolates per-step (DMA wait + compaction + loop) overhead.
-    from sliceslice_tpu import config
+    # sparse: one never-found needle per kernel block.
+    from sliceslice_tpu.ops.scan_kernel import NEEDLE_BLOCK
 
     sparse = list(floor)
-    for i in range(0, len(sparse), config.NEEDLE_BLOCK):
+    for i in range(0, len(sparse), NEEDLE_BLOCK):
         sparse[i] = fullscan[i]
 
     run("real", words, dh, total, k)

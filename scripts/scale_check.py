@@ -1,4 +1,4 @@
-"""Large-corpus scale check (dev tool, TPU): ~134 MB x 502 needles.
+"""Large-corpus scale check (dev tool, GPU): ~134 MB x 502 needles.
 
 Measures the sustained batched find sweep at a given segment geometry with
 a bytes.find parity gate, so layout decisions at scale (docs/DESIGN.md

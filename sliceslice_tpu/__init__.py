@@ -1,10 +1,10 @@
-"""sliceslice_tpu — a TPU-native single-pattern substring-search framework.
+"""sliceslice_tpu — a single-pattern substring-search framework for GPUs.
 
 A from-scratch re-design of the capabilities of cloudflare/sliceslice-rs
-(Wojciech Muła-style SIMD substring search) for TPU hardware: column-major
-VMEM byte tiles, packed uint32 window probes on the VPU, shape-specialized
-searcher families, batched multi-needle sweeps, and a sharded multi-chip
-corpus scanner.  See SURVEY.md for the structural map of the reference this
+(Wojciech Muła-style SIMD substring search) for an accelerator: column-major
+byte tiles, packed uint32 window probes compared in Triton kernels and XLA,
+shape-specialized searcher families, batched multi-needle sweeps, and a
+mesh-sharded multi-device corpus scanner.  See SURVEY.md for the structural map of the reference this
 build recreates.
 
 Public API::
@@ -36,7 +36,7 @@ from .ops.pairwise import PairwiseSearcher, pairwise_contains_all
 from .searcher import EmptyNeedleSearcher, SearcherBase, overlapping_count
 from .utils.streaming import StreamingScanner
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 __all__ = [
     "config",

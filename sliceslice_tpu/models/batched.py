@@ -1,24 +1,21 @@
 """Batched multi-needle searcher — the flagship workload shape.
 
 The reference searches one needle at a time and amortizes preprocessing
-across haystacks; on TPU the economic unit is the *batch*: N needles scanned
-over a device-resident haystack in kernel sweeps, so the haystack is read
-from HBM once per needle-block instead of once per needle.
+across haystacks; on the device the economic unit is the *batch*: N needles
+scanned over a device-resident haystack in kernel sweeps, so each window
+tile is loaded once per needle-block instead of once per needle.
 
 Needles are grouped by probe-table width T = ceil(k/4) at construction time
 (the batched generalization of the reference's per-length dispatch family,
 src/x86.rs:397-526): each group runs a straight-line kernel with exactly its
 probe count — no wasted probe slots, no in-kernel branching.  Group results
 are re-scattered to input order on device and fetched with a single
-device-to-host read (readback latency dwarfs any single kernel here).
+device-to-host read.
 
 The reference's first-match early exit (src/lib.rs:242-244) lives INSIDE the
-kernel here: the segment walk is an in-kernel while_loop over a compacted
-list of still-unfound needles (ops/scan_kernel.py), so a retired needle
-block stops issuing DMA or vector work entirely.  A host-side scheduling
-loop that re-sliced tables per round was measured 23x slower than the fused
-sweep (904 ms vs 39 ms median on the i386 word sweep, r2) and was removed —
-see docs/DESIGN.md.
+kernel here: each program walks its segments until every needle of its
+block has a published match (ops/scan_kernel.py), so a settled block stops
+issuing loads or compares entirely.
 """
 
 from __future__ import annotations
@@ -36,18 +33,15 @@ from ..ops.layout import DeviceHaystack, preprocess
 from ..ops.scan_math import SENTINEL
 from ..searcher import HaystackLike, _hay_bytes
 
-#: Widths beyond the kernels' unroll limit are bucketed (and must be even —
-#: the long-needle path loops probe *pairs*).
+#: Probe widths up to this get a group (and a compiled kernel) of their
+#: own: no wasted probe slots.  Wider tables are bucketed so long-needle
+#: lists compile a bounded number of kernel widths.
+EXACT_T_MAX = 8
 WIDE_T_BUCKETS = (16, 32, 64, 128, 256, 512)
 
 
 def _t_bucket(t: int) -> int:
-    if t <= scan_kernel.PROBE_UNROLL:
-        # Exact widths: with the whole sweep fused into one jit program,
-        # per-group fixed costs are negligible, and exact-width groups let
-        # the kernel compare slot t-2 without a mask (pen_full) — two fewer
-        # vector passes per (needle, chunk), four for k <= 4 needles that
-        # would otherwise ride in a t=2 group.
+    if t <= EXACT_T_MAX:
         return max(t, 1)
     for b in WIDE_T_BUCKETS:
         if t <= b:
@@ -65,13 +59,9 @@ class _Group:
         indices: np.ndarray,
         needles: List[bytes],
         t: int,
-        last_full: bool = False,
     ):
         self.indices = indices
         self.t = t
-        #: every needle length divisible by 4 (exact-width group): the whole
-        #: probe chain runs mask-free in the kernel.
-        self.last_full = last_full
         self.n = len(needles)
         vals, msks, lens = build_probe_table(needles, t_max=t)
         self.lengths = lens
@@ -80,7 +70,7 @@ class _Group:
         # avoidable device->host transfer.
         self.values_host = vals
         self.masks_host = msks
-        _, self.n_pad = scan_kernel.plan_block(self.n, t)
+        self.n_pad = scan_kernel.plan_block(self.n)
         rowpad = ((0, self.n_pad - self.n), (0, 0))
         self.values_dev = jnp.asarray(np.pad(vals, rowpad), jnp.uint32)
         self.masks_dev = jnp.asarray(np.pad(msks, rowpad), jnp.uint32)
@@ -128,8 +118,7 @@ class _Group:
         self.masks_host = self.masks_host[perm]
         # Rebuild the device tables from the permuted HOST copies — reading
         # the device tables back first would cost a device->host round trip
-        # per table (measured ~300 ms of link latency across the groups,
-        # r4), for bytes we already hold.
+        # per table for bytes we already hold.
         rowpad = ((0, self.n_pad - self.n), (0, 0))
         self.values_dev = jnp.asarray(
             np.pad(self.values_host, rowpad), jnp.uint32
@@ -187,25 +176,17 @@ class BatchedSearcher:
         self.max_len = max(
             (len(self.needles[i]) for i in kernel_idx), default=0
         )
-        # Group by width only: splitting further (e.g. by k % 4 == 0 to run
-        # mask-free "last_full" kernels) measured NET SLOWER on the i386
-        # sweep — the per-(block, segment) fixed cost of extra groups
-        # (window rebuilds, flag reductions) exceeds the two saved passes.
-        buckets: dict[tuple[int, bool], list[int]] = {}
+        buckets: dict[int, list[int]] = {}
         for i in kernel_idx:
             t = _t_bucket(max(1, num_probes(len(self.needles[i]))))
-            buckets.setdefault((t, False), []).append(i)
+            buckets.setdefault(t, []).append(i)
         self.groups = [
             _Group(
-                np.asarray(idx, np.int64),
-                [self.needles[i] for i in idx],
-                t,
-                last_full=lf,
+                np.asarray(idx, np.int64), [self.needles[i] for i in idx], t
             )
-            for (t, lf), idx in sorted(buckets.items())
+            for t, idx in sorted(buckets.items())
         ]
         self.max_t = max((g.t for g in self.groups), default=1)
-        self._base0 = jnp.asarray([0], jnp.int32)
         #: true (unpadded) row count per group — static across reorders.
         self._order_sizes = tuple(g.n for g in self.groups)
         self._rebuild_order()
@@ -251,22 +232,12 @@ class BatchedSearcher:
         n = len(self.needles)
         sizes = self._order_sizes
         s = dh.s
-        base0 = self._base0
-        # Exact-width groups (t <= unroll limit) carry full-mask slots below
-        # the final one; wide buckets still merge widths and keep masks.
-        flags = tuple(
-            (g.t <= scan_kernel.PROBE_UNROLL, g.last_full, g.n)
-            for g in self.groups
-        )
 
         @jax.jit
         def sweep(pw, order, tables):
             parts = [
-                scan_kernel.batched_find_cols(
-                    None, v, m, e, s=s, base=base0, pen_full=pf,
-                    last_full=lf, n_real=nr, pw=pw,
-                )
-                for (v, m, e), (pf, lf, nr) in zip(tables, flags)
+                scan_kernel.batched_find_cols(None, v, m, e, s=s, pw=pw)
+                for v, m, e in tables
             ]
             return _scatter_jit(n, sizes)(order, *parts)
 
@@ -282,20 +253,12 @@ class BatchedSearcher:
         n = len(self.needles)
         sizes = self._order_sizes
         s = dh.s
-        base0 = self._base0
-        flags = tuple(
-            (g.t <= scan_kernel.PROBE_UNROLL, g.last_full, g.n)
-            for g in self.groups
-        )
 
         @jax.jit
         def sweep(pw, order, tables):
             parts = [
-                scan_kernel.batched_count_cols(
-                    None, v, m, e, s=s, base=base0, pen_full=pf,
-                    last_full=lf, n_real=nr, pw=pw,
-                )
-                for (v, m, e), (pf, lf, nr) in zip(tables, flags)
+                scan_kernel.batched_count_cols(None, v, m, e, s=s, pw=pw)
+                for v, m, e in tables
             ]
             return _scatter_jit(n, sizes)(order, *parts)
 
@@ -366,8 +329,8 @@ class BatchedSearcher:
 
     def find_all(self, hay: HaystackLike) -> np.ndarray:
         """First-match offset per needle; -1 where absent.  Early-exit
-        economics are in-kernel (compacted unfound list + total segment-walk
-        exit, ops/scan_kernel.py) — no scheduling knobs needed."""
+        economics are in-kernel (per-block segment-walk exit,
+        ops/scan_kernel.py) — no scheduling knobs needed."""
         n = len(self.needles)
         if n == 0:
             return np.zeros((0,), np.int64)
@@ -434,8 +397,7 @@ class BatchedSearcher:
         together share kernel blocks and blocks retire as early as possible
         (a block walks segments until its SLOWEST needle is found).
         Results are exact regardless of row order — only scheduling
-        changes.  Measured on the i386 word sweep: 3.10 -> 2.56 ms/sweep
-        (+21% throughput, r4).
+        changes.
 
         ``firsts``: offsets from a prior :meth:`find_all` over a similar
         corpus (-1 absent).  A serving loop is already producing these, so
@@ -443,8 +405,8 @@ class BatchedSearcher:
         upload — no measuring sweep.  Omitted, the COLD path runs one
         measuring sweep and stays on device end to end: sweep output ->
         device argsort -> device permute of tables/ends/scatter-order —
-        zero readbacks, zero uploads (r4's cold N* was dominated by one
-        ~28 ms readback; host table copies sync lazily on demand).
+        zero readbacks, zero uploads (host table copies sync lazily on
+        demand).
         Returns self."""
         if firsts is None:
             dh = self._layout(hay)
@@ -488,8 +450,7 @@ class BatchedSearcher:
         bump the epoch so downstream placed-table caches invalidate.  The
         sweep closures survive unchanged — tables AND the scatter order are
         kernel operands, so a reorder is a handful of device_puts with ZERO
-        recompiles (r3's ~546-sweep break-even was recompile cost; r4
-        measures ~2 sweeps).  Shared by the single-chip and sharded
+        recompiles.  Shared by the single-device and sharded
         optimizers (each supplies its own measuring sweep)."""
         key = np.where(firsts < 0, np.iinfo(np.int64).max, firsts)
         for g in self.groups:

@@ -8,8 +8,8 @@ kernels (src/x86.rs:476-490); otherwise the generic searcher (src/x86.rs:491).
 One extra rung the reference's ladder implies but a device target makes
 explicit: haystacks below :data:`HOST_HAY_BYTES` that arrive as host bytes
 are searched by the native C++ SWAR tier (utils/native.py) — a device
-round-trip costs milliseconds of link latency while a sub-4KB scan costs
-microseconds on the host, the same "cheapest adequate machinery" logic as
+round trip (upload, launch, readback) costs more than a sub-4KB scan on the
+host, the same "cheapest adequate machinery" logic as
 the reference's narrow-register rungs (src/x86.rs:361-375).  Preprocessed
 :class:`DeviceHaystack` inputs always take the device path.
 """

@@ -3,9 +3,9 @@ budget (``MAX_NEEDLE_LEN``), supported exactly via filter + verify.
 
 The reference accepts arbitrary-length needles through one generic path
 (src/lib.rs:52-59) because its filter is only ever two bytes wide and the
-verify is a serial memcmp (src/lib.rs:199-251).  The TPU kernels instead
+verify is a serial memcmp (src/lib.rs:199-251).  The device kernels instead
 verify *in-kernel* with a probe table whose width scales with the needle —
-bounded by halo rows and VMEM.  Past that bound this searcher restores the
+bounded by the layout's halo rows.  Past that bound this searcher restores the
 reference's filter+verify split at a coarser grain, with an adaptive verify
 tier:
 

@@ -1,6 +1,6 @@
 """Single-byte searcher — the ``MemchrSearcher`` analogue (src/lib.rs:119-142):
-a dedicated 1-byte path that compares the raw uint8 tile directly (no window
-packing), halving in-kernel work versus the generic probe path."""
+a dedicated 1-byte path that compares the raw uint8 tiles directly (no window
+packing) in one fused XLA reduction."""
 
 from __future__ import annotations
 
@@ -40,6 +40,5 @@ class MemchrSearcher(SearcherBase):
             np.asarray([msks], np.uint32),
             np.asarray([dh.length], np.int32),
             s=dh.s,
-            nblk=1,
             pw=dh.windows(),
         )[0]

@@ -1,4 +1,4 @@
-"""The native searcher family: Pallas TPU kernels behind the reference's
+"""The native searcher family: Pallas kernels behind the reference's
 ``Avx2Searcher``-shaped API (src/x86.rs:266-395).
 
 Like the reference's per-haystack-length vector ladder (src/x86.rs:361-375),
@@ -50,20 +50,8 @@ class PallasSearcher(SearcherBase):
             )
         dh = dh.ensure_kh(k)
         return scan_kernel.batched_find_cols(
-            None,
-            self._values,
-            self._masks,
-            np.asarray([end], np.int32),
-            s=dh.s,
-            nblk=1,
-            # Exact-width table: every slot below the final one is full-mask;
-            # for k divisible by 4 the final one is too.
-            pen_full=self._values.shape[1] <= scan_kernel.PROBE_UNROLL,
-            last_full=(
-                self._values.shape[1] <= scan_kernel.PROBE_UNROLL
-                and k % 4 == 0
-            ),
-            pw=dh.windows(),
+            None, self._values, self._masks, np.asarray([end], np.int32),
+            s=dh.s, pw=dh.windows(),
         )[0]
 
     def _count_device(self, dh: DeviceHaystack):
@@ -73,18 +61,8 @@ class PallasSearcher(SearcherBase):
             raise NotImplementedError  # flat layout: host fallback
         dh = dh.ensure_kh(k)
         return scan_kernel.batched_count_cols(
-            None,
-            self._values,
-            self._masks,
-            np.asarray([end], np.int32),
-            s=dh.s,
-            nblk=1,
-            pen_full=self._values.shape[1] <= scan_kernel.PROBE_UNROLL,
-            last_full=(
-                self._values.shape[1] <= scan_kernel.PROBE_UNROLL
-                and k % 4 == 0
-            ),
-            pw=dh.windows(),
+            None, self._values, self._masks, np.asarray([end], np.int32),
+            s=dh.s, pw=dh.windows(),
         )[0]
 
 

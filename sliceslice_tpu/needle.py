@@ -2,7 +2,7 @@
 
 The reference models needles through a ``Needle`` trait whose ``const SIZE``
 lets the verify step specialize at compile time (reference: src/lib.rs:35-117).
-The TPU-native analogue: a :class:`Needle` carries its bytes plus a *probe
+The device analogue: a :class:`Needle` carries its bytes plus a *probe
 program* — a static list of packed little-endian ``uint32`` window compares
 that together prove an exact match.  A needle of length ``k`` compiles to
 ``ceil(k / 4)`` probes:
@@ -20,7 +20,7 @@ where ``window32(hay, p) = hay[p] | hay[p+1]<<8 | hay[p+2]<<16 | hay[p+3]<<24``.
 
 This replaces the reference's first/last-byte candidate filter + serial
 ``memcmp`` verify (src/lib.rs:199-251) with a branch-free, dense formulation
-that runs on the TPU VPU at its native 32-bit lane width — 4x fewer vector ops
+that runs at the device's native 32-bit lane width — 4x fewer vector ops
 than byte-at-a-time compares, with no data-dependent control flow.
 
 ``position`` is kept for API parity with ``with_position`` (reference:
@@ -48,8 +48,8 @@ NeedleLike = Union[bytes, bytearray, memoryview, np.ndarray, str]
 
 #: Longest needle supported by the fully generic kernels.  Covers the random
 #: benchmark's largest needle (bench/benches/random.rs:16 uses 1000 bytes)
-#: with 2x headroom; bounded so halo rows + packed-window scratch stay inside
-#: the VMEM budget.
+#: with 2x headroom; bounded because every segment of the layout carries
+#: ``k - 1`` halo rows (longer needles: models/huge.py).
 MAX_NEEDLE_LEN = 2048
 
 
@@ -81,8 +81,8 @@ def probe_program(needle: bytes) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     """Compile a needle into (values, masks) uint32 probe tuples.
 
     Probe slot ``t`` always compares the 4-byte window at offset ``4*t`` —
-    offsets are *implicit and static per slot*, so kernels use static sublane
-    slices with no per-needle dynamic addressing.  The final probe of a
+    offsets are *implicit and static per slot*, so kernels read fixed row
+    offsets with no per-needle dynamic addressing.  The final probe of a
     needle whose length is not a multiple of 4 is mask-narrowed to its
     ``k % 4`` bytes instead of overlapping at ``k - 4``.
 

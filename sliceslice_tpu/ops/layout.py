@@ -2,9 +2,10 @@
 
 The reference streams 32-byte SIMD registers over the haystack with a second
 load offset by ``position`` and a masked overlapping tail (src/lib.rs:253-287).
-The TPU re-expression: lay the byte stream out **column-major** over the VPU's
-128 lanes so that a shift of the flat stream becomes a *sublane (row) shift* —
-the only cheap shift direction on TPU:
+The device re-expression: lay the byte stream out **column-major** over 128
+lanes so that a shift of the flat stream becomes a *row shift* — a probe at
+byte offset ``4t`` reads the same lane ``4t`` rows further down, and a row of
+128 lanes is one contiguous 512-byte load of packed windows:
 
     cols[g, s, c] = hay[g*SEG + c*S + s]          (SEG = S * 128)
 
@@ -19,8 +20,9 @@ is evaluated exactly once and invalid positions (``p > len - k``) are masked
 with an iota compare — masking instead of overlapping reads, same semantics
 (``end = len - k + 1``, src/lib.rs:258).
 
-Segments are self-contained (halo included), which makes multi-chip sharding
-embarrassingly parallel: shard the ``g`` axis, no neighbor communication.
+Segments are self-contained (halo included), which makes multi-device
+sharding embarrassingly parallel: shard the ``g`` axis, no neighbor
+communication.
 """
 
 from __future__ import annotations
@@ -38,12 +40,8 @@ LANES = 128
 MIN_KH = 3
 #: Default halo supports needles up to 64 bytes without relayout.
 DEFAULT_KH = 64
-#: Max rows per segment (4096 rows * 128 lanes = 512 KiB).  Sized so the
-#: find kernel's double-buffered packed-window scratch (two uint32 buffer
-#: pairs, ~16 bytes/row-lane ≈ 8.5 MiB at this cap) plus chunk temporaries
-#: stays inside the ~16 MiB VMEM scoped-allocation budget — verified to
-#: compile and run at this cap with the widest unrolled (t=8) and
-#: pair-looped (t=16) probe tables on v5e.
+#: Max rows per segment (4096 rows * 128 lanes = 512 KiB): the grain of
+#: the find kernel's early exit and of the XLA paths' per-segment steps.
 SEG_CAP_ROWS = 4096
 #: Haystacks at or below this many bytes use the flat (non-tiled) XLA path.
 SHORT_HAY_BYTES = 8192
@@ -70,8 +68,9 @@ def plan_layout(length: int, kh: int) -> tuple[int, int]:
     """Pick (segment_rows S, num_segments G) for a haystack of ``length`` bytes.
 
     S is bucketed (powers of two of rows for small haystacks, multiples of 512
-    for large ones, always a multiple of 32 to satisfy the int8 (32, 128)
-    sublane tile) so distinct haystack lengths share compiled kernels — the
+    for large ones, always a multiple of 32 — the packed-bitmap word height
+    and a multiple of the kernels' row tile) so distinct haystack lengths
+    share compiled kernels — the
     analogue of the reference's haystack-length vector ladder
     (src/x86.rs:361-375) with buckets instead of register widths.  Large
     haystacks use balanced segments so trailing-pad waste stays small.
@@ -82,10 +81,9 @@ def plan_layout(length: int, kh: int) -> tuple[int, int]:
         s = max(32 * next_pow2(-(-rows // 32)), kh_rows)
         return min(s, SEG_CAP_ROWS), 1
     # Multi-segment: small segments give the kernels' early exit fine
-    # granularity (a skipped segment costs zero), but each segment revisit
-    # re-streams the output block — so cap the segment count at ~64 and let
-    # segments grow with the corpus (512 rows up to ~4 MiB, then larger, up
-    # to the VMEM-bounded SEG_CAP_ROWS).
+    # granularity (a skipped segment costs zero), but each segment costs a
+    # step — so cap the segment count at ~64 and let segments grow with the
+    # corpus (512 rows up to ~4 MiB, then larger, up to SEG_CAP_ROWS).
     s = 512
     while length > 64 * (s * LANES) and s < SEG_CAP_ROWS:
         s *= 2
@@ -246,7 +244,7 @@ def preprocess(
 
     ``windows_only``: drop the uint8 byte tiles after deriving the packed
     windows — find/count-only workloads then hold ~4 bytes/corpus-byte on
-    device instead of ~5, raising the max on-chip corpus (positions/memchr
+    device instead of ~5, raising the max device-resident corpus (positions/memchr
     rebuild tiles lazily from the host copy when ``keep_host``).
 
     ``length``: logical corpus length when ``hay`` is an ndarray LONGER

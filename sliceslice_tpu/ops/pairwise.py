@@ -2,7 +2,7 @@
 
 The reference's short-haystack bench/conformance sweep searches every
 dictionary word in every same-or-longer word, one `search_in` call per pair
-(~10.5M calls, bench/benches/i386.rs:16-155, tests/i386.rs:46-59).  The TPU
+(~10.5M calls, bench/benches/i386.rs:16-155, tests/i386.rs:46-59).  The device
 re-expression evaluates a whole (needle-block x haystack-block) tile of pairs
 per device op, using the same packed-window probes as the long-haystack
 kernel: needle n is ``T = ceil(k/4)`` masked uint32 window compares, and for
@@ -25,14 +25,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .. import config
 
-#: Block edge for the pair matrix (tile = BLOCK x BLOCK pairs).  Tuned on
-#: v5e: finer blocks give the static plan tighter per-block (tn, mi)
-#: buckets and more skipped all-false blocks on length-sorted word lists
-#: (512 -> 1.15 ms vs 2048 -> 1.43 ms on the i386 sweep); dispatch stays
+#: Block edge for the pair matrix (tile = BLOCK x BLOCK pairs).  Finer
+#: blocks give the static plan tighter per-block (tn, mi) buckets and more
+#: skipped all-false blocks on length-sorted word lists; dispatch stays
 #: flat because the whole plan is one fused jit program.
 BLOCK = 512
 
@@ -61,7 +60,7 @@ def _pair_block(valt, mskt, ln, pht, lh, tn, mi):
 
     Scans candidate position i with a small (Nb, Hb) carry; the probe chain
     is statically unrolled so XLA fuses it into one pass per i.  Windows
-    live along sublanes, so the dynamic ``i + 4t`` row extraction is cheap;
+    live along rows, so the dynamic ``i + 4t`` row extraction is cheap;
     mask-0 slots are trivially true (mixed lengths, empty needles included).
     """
     nb = valt.shape[1]
@@ -91,60 +90,62 @@ def _pair_block(valt, mskt, ln, pht, lh, tn, mi):
     return first < mi, first
 
 
-#: Pallas pair-block tile (needle sublanes x haystack lanes).  The XLA
-#: formulation above materializes its (Nb, Hb) intermediates to HBM every
-#: probe step; the Pallas kernel keeps the whole first-offset tile and all
-#: temporaries VMEM-resident, cutting device time ~40% on v5e.
-PALLAS_BN = 256
-PALLAS_BH = 512
+#: Triton pair-block tile: PAIR_BN needles x PAIR_BH haystack words per
+#: program, the whole (PAIR_BN, PAIR_BH) first-offset tile held in
+#: registers across the candidate-position loop (the XLA formulation above
+#: writes its (Nb, Hb) carry to memory every position step).
+PAIR_BN = 32
+PAIR_BH = 128
 
 
 @functools.lru_cache(maxsize=128)
 def _pair_block_call(
-    tn: int, mi: int, rp: int, nbp: int, hbp: int, bn: int, bh: int,
-    interpret: bool,
+    tn: int, mi: int, rp: int, nbp: int, hbp: int, interpret: bool,
 ):
-    """Pallas pair-block: needles on sublanes, haystack words on lanes.
-    (vcol (nbp,tn)u32, mcol (nbp,tn)u32, ln (nbp,1)i32, pht (rp,hbp)u32,
-    lh (1,hbp)i32) -> first (nbp,hbp)i32 in [0,mi], mi = no-match."""
+    """Pair-block kernel: (valt (tn,nbp)u32, mskt (tn,nbp)u32, ln (nbp,)i32,
+    pht (rp,hbp)u32, lh (hbp,)i32) -> first (nbp,hbp)i32 in [0,mi],
+    mi = no-match."""
+    bn, bh = PAIR_BN, PAIR_BH
 
-    def kernel(vcol_ref, mcol_ref, ln_ref, pht_ref, lh_ref, out_ref):
-        limit = lh_ref[0:1, :] - ln_ref[:, 0:1]  # (bn, bh)
-        # Hoist the per-slot value/mask lane-broadcasts out of the i loop.
-        vb = [jnp.broadcast_to(vcol_ref[:, t : t + 1], (bn, bh)) for t in range(tn)]
-        mb = [jnp.broadcast_to(mcol_ref[:, t : t + 1], (bn, bh)) for t in range(tn)]
-        acc = jnp.full((bn, bh), mi, jnp.int32)
-        # i runs DESCENDING (static unroll: i and 4t are compile-time
-        # rows), so a plain select keeps the smallest matching i — one
-        # vector pass instead of the 3-pass guarded update.  Validity
-        # (i <= limit) is a PREFIX of the range, so the smallest raw match
-        # is valid iff <= limit: one post-loop filter replaces the per-i
-        # compare+and.
-        for i in range(mi - 1, -1, -1):
+    def kernel(valt_ref, mskt_ref, ln_ref, pht_ref, lh_ref, out_ref):
+        vb = [valt_ref[t, :][:, None] for t in range(tn)]
+        mb = [mskt_ref[t, :][:, None] for t in range(tn)]
+
+        def step(j, acc):
+            # i runs DESCENDING, so a plain select keeps the smallest
+            # matching i.  Validity (i <= limit) is a PREFIX of the range,
+            # so the smallest raw match is valid iff <= limit: one filter
+            # after the loop.
+            i = mi - 1 - j
             m = None
             for t in range(tn):
-                hrow = pht_ref[i + 4 * t : i + 4 * t + 1, :]  # (1, bh)
-                eq = (hrow & mb[t]) == vb[t]  # values pre-masked (needle.py)
+                row = pht_ref[pl.ds(i + 4 * t, 1), :]  # (1, bh) windows
+                eq = (row & mb[t]) == vb[t]  # values pre-masked (needle.py)
                 m = eq if m is None else jnp.logical_and(m, eq)
-            acc = jnp.where(m, jnp.int32(i), acc)
+            return jnp.where(m, i, acc)
+
+        acc = jax.lax.fori_loop(
+            0, mi, step, jnp.full((bn, bh), mi, jnp.int32)
+        )
+        limit = lh_ref[...][None, :] - ln_ref[...][:, None]
         out_ref[...] = jnp.where(acc <= limit, acc, jnp.int32(mi))
 
     return pl.pallas_call(
         kernel,
         grid=(nbp // bn, hbp // bh),
         in_specs=[
-            pl.BlockSpec((bn, tn), lambda ni, hi: (ni, 0)),
-            pl.BlockSpec((bn, tn), lambda ni, hi: (ni, 0)),
-            pl.BlockSpec((bn, 1), lambda ni, hi: (ni, 0)),
+            pl.BlockSpec((tn, bn), lambda ni, hi: (0, ni)),
+            pl.BlockSpec((tn, bn), lambda ni, hi: (0, ni)),
+            pl.BlockSpec((bn,), lambda ni, hi: (ni,)),
             pl.BlockSpec((rp, bh), lambda ni, hi: (0, hi)),
-            pl.BlockSpec((1, bh), lambda ni, hi: (0, hi)),
+            pl.BlockSpec((bh,), lambda ni, hi: (hi,)),
         ],
         out_specs=pl.BlockSpec((bn, bh), lambda ni, hi: (ni, hi)),
         out_shape=jax.ShapeDtypeStruct((nbp, hbp), jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-        ),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
         interpret=interpret,
+        name="sliceslice_pair_block",
     )
 
 
@@ -153,30 +154,23 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _pair_block_pallas(valt, mskt, ln, pht, lh, tn, mi, interpret):
-    """Same contract as `_pair_block`, VMEM-resident (jittable; padding and
-    the needle-table transpose fuse into the caller's program).  Padded
-    needle rows get len 2**30 (limit < 0: never valid); padded haystack
-    lanes get len -1 (same)."""
+    """Same contract as `_pair_block`, register-resident (jittable; padding
+    fuses into the caller's program).  Padded needle columns get len 2**30
+    (limit < 0: never valid); padded haystack columns get len -1 (same)."""
     nb = valt.shape[1]
     hb = pht.shape[1]
-    bn = min(PALLAS_BN, _round_up(nb, 8))
-    bh = min(PALLAS_BH, _round_up(hb, 128))
-    nbp = _round_up(nb, bn)
-    hbp = _round_up(hb, bh)
-    r = mi + 4 * tn - 3
-    rp = _round_up(r, 8)
-    vcol = jnp.pad(valt.T, ((0, nbp - nb), (0, 0)))
-    mcol = jnp.pad(mskt.T, ((0, nbp - nb), (0, 0)))
-    lnp = jnp.pad(
-        ln.reshape(-1, 1), ((0, nbp - nb), (0, 0)), constant_values=1 << 30
-    )
-    phtp = jnp.pad(pht[:r], ((0, rp - r), (0, hbp - hb)))
+    nbp = _round_up(nb, PAIR_BN)
+    hbp = _round_up(hb, PAIR_BH)
+    rp = mi + 4 * tn - 3
+    valp = jnp.pad(valt, ((0, 0), (0, nbp - nb)))
+    mskp = jnp.pad(mskt, ((0, 0), (0, nbp - nb)))
+    lnp = jnp.pad(ln, ((0, nbp - nb),), constant_values=1 << 30)
+    phtp = jnp.pad(pht[:rp], ((0, 0), (0, hbp - hb)))
     lhp = jnp.pad(
-        lh.reshape(1, -1).astype(jnp.int32), ((0, 0), (0, hbp - hb)),
-        constant_values=-1,
+        lh.astype(jnp.int32), ((0, hbp - hb),), constant_values=-1
     )
-    call = _pair_block_call(tn, mi, rp, nbp, hbp, bn, bh, interpret)
-    first = call(vcol, mcol, lnp, phtp, lhp)[:nb, :hb]
+    call = _pair_block_call(tn, mi, rp, nbp, hbp, interpret)
+    first = call(valp, mskp, lnp, phtp, lhp)[:nb, :hb]
     return first < mi, first
 
 
@@ -192,17 +186,17 @@ class PairwiseSearcher:
         self,
         needles: Sequence[bytes],
         block: int = BLOCK,
-        use_pallas: bool | None = None,
+        use_pallas: bool = True,
     ):
         from ..needle import build_probe_table
 
         self.needles = [bytes(w) for w in needles]
         self.block = block
-        # Pallas block kernel on a real chip; portable XLA formulation
-        # elsewhere (tests can force the Pallas interpreter for coverage).
-        self.use_pallas = (
-            not config.use_interpret() if use_pallas is None else use_pallas
-        )
+        # The Pallas block kernel by default (compiled on the GPU,
+        # interpreted on the CPU: config.use_interpret); use_pallas=False
+        # selects the portable XLA formulation, the differential reference.
+        config.use_interpret()  # refuses an unsupported backend up front
+        self.use_pallas = use_pallas
         self.jn = self._bucket(max_len(self.needles))
         self.tn = -(-self.jn // 4)
         vals, msks, lens = build_probe_table(self.needles, t_max=self.tn)
@@ -241,7 +235,7 @@ class PairwiseSearcher:
         mi = self._bucket(max_len(hs))
         arr, lens = pack_words(hs, mi + 4 * self.tn)
         # Packed little-endian 4-byte windows per word, positions along
-        # sublanes: pht[r, h] = window of word h at byte offset r.
+        # rows: pht[r, h] = window of word h at byte offset r.
         a = arr.T.astype(np.uint32)  # (W, H)
         pht = a[:-3] | (a[1:-2] << 8) | (a[2:-1] << 16) | (a[3:] << 24)
         out = (jnp.asarray(pht), jnp.asarray(lens), mi)

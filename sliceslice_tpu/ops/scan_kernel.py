@@ -1,34 +1,38 @@
-"""Pallas TPU scan kernels — the native compute tier.
+"""Pallas scan kernels for the tiled layout, compiled through Triton.
 
 These kernels play the role of the reference's SIMD intrinsic layers
 (src/x86.rs:26-235, src/aarch64.rs:27-174, src/wasm32.rs:7-178) plus the
 generic kernel they feed (``vector_search_in_chunk``/``vector_search_in``,
-src/lib.rs:199-287), re-designed for the TPU VPU:
+src/lib.rs:199-287):
 
-* the haystack is laid out column-major over the 128 lanes (see
-  ops/layout.py) so flat-stream shifts are sublane shifts, and its 4-byte
-  little-endian packed windows are built ONCE at preprocess time — the
-  kernels DMA ready-to-probe uint32 window segments from HBM (base plus a
-  +4-row-shifted view), double-buffered against compute;
-* needle slot ``t`` compares the packed window at *static* offset ``4*t``
-  (see needle.probe_program) — ``ceil(k/4)`` masked uint32 compares prove an
-  exact match with zero dynamic addressing, no movemask/trailing_zeros
-  serialization, and no data-dependent control flow (which also voids the
-  adversarial-input DoS concern ``with_position`` mitigates in the
-  reference, src/x86.rs:252-255);
-* invalid positions are masked by iota compare against ``end = len - k + 1``
-  (replacing the reference's overlapping tail trick, src/lib.rs:276-283);
-* grid = needle blocks ONLY; each block walks segments with an in-kernel
-  loop (while_loop + total early exit for find, fori_loop for count), so
-  per-needle accumulation stays resident in the output block and a retired
-  block issues no further DMA or steps at all;
-* inside the segment loop the needle loop iterates a left-compacted SMEM
-  list of still-unfound needles (exact early-exit economics), with probe
-  windows read from the 8-row-aligned buffer pair (P and P+4) — no
-  unaligned dynamic slices, no per-chunk slab materialization.
+* the haystack is laid out column-major over 128 lanes (ops/layout.py) with
+  its 4-byte little-endian windows packed once at preprocess time, so a
+  probe slot ``t`` reads the window ``4*t`` rows further down the same
+  lane — ``ceil(k/4)`` masked uint32 compares prove an exact match with no
+  data-dependent control flow;
+* a program owns :data:`NEEDLE_BLOCK` needles and one split of the
+  corpus's segments.  It loads each ``(ROWS, 128)`` window tile once and
+  compares it against all of its needles in registers, keeping a running
+  per-position minimum that is reduced once per segment;
+* the grid is (needle blocks, corpus splits).  Blocks run in parallel and
+  in no set order, so the first-match minimum across splits is an
+  ``atomic_min`` on the output.  The same atomic doubles as the early exit
+  (the reference's first-match return, src/lib.rs:242-244, at segment
+  grain): before each segment a program reads the published minima of its
+  needles and stops once every one already has a match before that
+  segment.  The launch order is split-major, so later splits mostly find
+  their needles settled and leave at once;
+* invalid positions are masked by the caller's ``ends`` (``end = len - k +
+  1``, src/lib.rs:258) after the kernel: the first raw match is the first
+  valid one iff it lies below ``end``.
 
 Outputs are per-needle first-match offsets (int32, SENTINEL when absent) —
-a strict superset of the reference's bool ``search_in``.
+a strict superset of the reference's bool ``search_in``.  The count kernel
+shares the grid and tiles but has no early exit: each split writes its
+partial counts and XLA sums them.  Both beat their plain XLA formulations
+(``xla_backend.find_batched_cols`` / ``count_batched_cols``, the
+differential references) on the H100; the 1-byte memchr rung did not and
+is plain XLA (PERF.md).
 """
 
 from __future__ import annotations
@@ -39,1033 +43,268 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .. import config
-from .scan_math import SENTINEL, lane_first_offset
+from .scan_math import SENTINEL
 
 LANES = 128
 
-#: Row-chunk height for probe evaluation (bounds live VMEM temporaries;
-#: 1024 rows halves per-chunk scalar overhead vs 512 and still fits the
-#: Mosaic stack at the widest unrolled probe count).
-CHUNK_ROWS = 1024
-
-#: Probe-table widths up to this are fully unrolled; wider tables (long
-#: needles) loop probe pairs.  Both paths read the aligned (P, P+4) pair.
-PROBE_UNROLL = 8
-
-#: In-segment "no match row" sentinel for per-lane row minima: far above any
-#: real row index (rows < SEG_CAP) yet small enough that adding a chunk
-#: offset can never overflow int32.
-NO_ROW = 1 << 30
-
-
-# -- machinery shared by the find and count kernels ---------------------------
-# (same DMA pattern, window addressing, and probe chain; the kernels differ
-# only in their per-chunk reduction and early-exit policy).
-
-
-def _chunk_plan(s: int, t: int):
-    """(cs, n_chunks, unrolled): largest chunk height dividing s, and the
-    probe-path selector.  Probe widths beyond PROBE_UNROLL loop pairs and
-    must be even (callers pad a no-op slot)."""
-    cs = s
-    for cand in (1024, 512, 256, 128, 64, 32, 16, 8):
-        if cand <= CHUNK_ROWS and s % cand == 0:
-            cs = cand
-            break
-    cs = min(cs, s)
-    unrolled = t <= PROBE_UNROLL
-    if not unrolled and t % 2:
-        raise ValueError("probe widths beyond PROBE_UNROLL must be even")
-    return cs, s // cs, unrolled
-
-
-def _seg_dma_factory(pw_hbm, pbuf, p4buf, sem, h):
-    """Two async copies per segment from the precomputed HBM window array:
-    the base windows and the +4-row-shifted view (probe slot ti reads one of
-    the two at an 8-row-aligned offset) — no in-kernel packing, no unaligned
-    dynamic slices."""
-
-    def seg_dma(gi, slot):
-        return (
-            pltpu.make_async_copy(
-                pw_hbm.at[gi, pl.ds(0, h - 3)], pbuf.at[slot],
-                sem.at[slot, 0],
-            ),
-            pltpu.make_async_copy(
-                pw_hbm.at[gi, pl.ds(4, h - 7)], p4buf.at[slot],
-                sem.at[slot, 1],
-            ),
-        )
-
-    return seg_dma
-
-
-def _hoist_windows(pbuf, p4buf, slot, cs, t, unrolled, n_chunks):
-    """Single-chunk segments: the window slices are identical for every
-    needle in the block — hoist them out of the needle loop so they are
-    loaded once per segment (loop-invariant values) instead of once per
-    needle.  Bounded to t <= 4 (<= 2 MiB of live windows at cs=1024) to keep
-    Mosaic register/stack pressure sane."""
-    if not (unrolled and n_chunks == 1 and t <= 4):
-        return None
-
-    def _win0(ti):
-        src = pbuf if ti % 2 == 0 else p4buf
-        off = pl.multiple_of(4 * (ti - ti % 2), 8)
-        return src[slot, pl.ds(off, cs), :]
-
-    return tuple(_win0(ti) for ti in range(t))
-
-
-def _windows_factory(pbuf, p4buf, slot, row0, cs, hoisted):
-    """Slot ti's windows from the aligned buffer pair: even ti from P, odd
-    ti from the +4-shifted copy — both at 8-row-aligned dynamic offsets."""
-
-    def windows(ti):
-        if hoisted is not None:
-            return hoisted[ti]
-        src = pbuf if ti % 2 == 0 else p4buf
-        off = pl.multiple_of(row0 + 4 * (ti - ti % 2), 8)
-        return src[slot, pl.ds(off, cs), :]
-
-    return windows
-
-
-#: Final-slot mask classes for the premasked-window path: index = number of
-#: mask thresholds exceeded (0 = mask 0 "always true" for padded rows /
-#: merged width-(t-1) needles, 4 = full mask).
-PM_CLASSES = (0, 0xFF, 0xFFFF, 0xFFFFFF, 0xFFFFFFFF)
-
-
-def _premask_fill(pm_scr, w_last):
-    """Write the five premasked copies of the final-slot windows — once per
-    (block, segment), amortized over every needle in the block.  The
-    per-needle masked compare then drops its AND: measured 6.90 -> 5.67 ms
-    on the t=2 never-match fullscan (scripts/kernel_probe.py), the one
-    remaining removable vector op at the 4-issue ALU bound."""
-    pm_scr[0] = jnp.zeros_like(w_last)
-    pm_scr[1] = w_last & jnp.uint32(0xFF)
-    pm_scr[2] = w_last & jnp.uint32(0xFFFF)
-    pm_scr[3] = w_last & jnp.uint32(0xFFFFFF)
-    pm_scr[4] = w_last
-
-
-def _check_width_contract(
-    masks: np.ndarray, t: int, pen_full: bool, last_full: bool
-) -> None:
-    """Contract guard (host tables only; device tables come from the
-    grouped builders which satisfy it by construction): every slot below
-    the masked tail must be FULL-mask on every non-padding row — the
-    kernels compare those slots without masks, so a narrower needle merged
-    into a too-wide table would silently false-negative (e.g. a k=4 row in
-    a t=4 table, masks [full, 0, 0, 0]: slots 1..2 would compare unmasked
-    as window == 0).  All-zero rows are padding and exempt (their end = 0
-    filters any spurious match)."""
-    if t > PROBE_UNROLL:
-        return  # the pair-looped long-needle path applies every mask
-    n_masked = 0 if last_full else (1 if pen_full else 2)
-    if t <= n_masked:
-        return
-    body = masks[:, : t - n_masked]
-    padding = (masks == 0).all(axis=1)
-    if ((body != 0xFFFFFFFF).any(axis=1) & ~padding).any():
-        raise ValueError(
-            "probe table violates width contract: non-final slots must "
-            "be full-mask on every non-padding row (group needles by "
-            "ceil(k/4) width — build_probe_table per width group)"
-        )
-
-
-def _premask_classes_ok(masks_np: np.ndarray) -> bool:
-    """True when every FINAL-slot mask is one of the little-endian byte
-    prefixes in PM_CLASSES — the only masks build_probe_table emits and the
-    only ones the premask path can classify.  Caller-built host tables with
-    exotic final masks (e.g. 0xFFFF0000) fall back to the exact masked
-    compare (pen_full cleared)."""
-    return bool(np.isin(masks_np[:, -1], np.asarray(PM_CLASSES, np.uint32)).all())
-
-
-def _premask_class(m):
-    """Scalar class index of mask ``m`` (a handful of scalar ops replacing a
-    full (cs, LANES) vector AND per needle)."""
-    return (
-        (m > 0).astype(jnp.int32)
-        + (m > 0xFF).astype(jnp.int32)
-        + (m > 0xFFFF).astype(jnp.int32)
-        + (m > 0xFFFFFF).astype(jnp.int32)
-    )
-
-
-def _probe_row(val_ref, msk_ref, n, t, pen_full, last_full):
-    """Per-needle scalar table reads for the unrolled path: (vals, masked)
-    where masked lists the (slot, mask) pairs that compare with a mask.
-    Only the last two slots can carry masks (a needle of width t-1 merged
-    into this group has its narrowed slot at t-2, its no-op slot at t-1);
-    earlier slots are full windows by construction and compare without
-    masks.  With pen_full, slot t-2 is full too (exact-width group); with
-    last_full, every slot is."""
-    vals = [val_ref[n, ti] for ti in range(t)]
-    if last_full:
-        masked = ()
-    elif t == 1 or pen_full:
-        masked = ((t - 1, msk_ref[n, t - 1]),)
-    else:
-        masked = ((t - 2, msk_ref[n, t - 2]), (t - 1, msk_ref[n, t - 1]))
-    return vals, masked
-
-
-def _unrolled_acc(windows, vals, masked, t, last_eq=None):
-    """Straight-line unrolled probes — no per-slot branches (scf.cond with
-    vector results forces register spills); mixed-length batches are split
-    into width groups by the callers.  Masked slots compare as the 2-op
-    (w & m) == v — table values are pre-masked (needle.build_probe_table),
-    so the 3-op xor-form is never needed.  Slot order: full slots ascending,
-    then the masked tail slots (they are always the last ones).
-
-    ``last_eq``: prebuilt equality vector for the final slot (the premasked
-    -window path, _premask_fill) — slot t-1 is then skipped here."""
-    masked_d = dict(masked)
-    acc = None
-    top = t - 1 if last_eq is not None else t
-    for ti in range(top):
-        m = masked_d.get(ti)
-        w = windows(ti)
-        eq = ((w & m) == vals[ti]) if m is not None else (w == vals[ti])
-        acc = eq if acc is None else jnp.logical_and(acc, eq)
-    if last_eq is not None:
-        acc = last_eq if acc is None else jnp.logical_and(acc, last_eq)
-    return acc
-
-
-def _pair_loop_acc(pbuf, p4buf, slot, row0, cs, val_ref, msk_ref, n, t):
-    """Long needles: loop probe pairs; offsets stay 8-aligned.  The
-    accumulator is carried as uint32 — Mosaic mislays large i1 vectors
-    through scf loops."""
-
-    def probe_pair(j, acc_c):
-        off = pl.multiple_of(row0 + 8 * j, 8)
-        eq0 = (
-            pbuf[slot, pl.ds(off, cs), :] & msk_ref[n, 2 * j]
-        ) == val_ref[n, 2 * j]
-        eq4 = (
-            p4buf[slot, pl.ds(off, cs), :] & msk_ref[n, 2 * j + 1]
-        ) == val_ref[n, 2 * j + 1]
-        both = jnp.logical_and(eq0, eq4)
-        return acc_c & both.astype(jnp.uint32)
-
-    acc_u = jax.lax.fori_loop(
-        0, t // 2, probe_pair, jnp.ones((cs, LANES), jnp.uint32)
-    )
-    return acc_u != 0
-
-
-@functools.lru_cache(maxsize=256)
-def _raw_batched_call(
-    g: int,
-    h: int,
-    s: int,
-    t: int,
-    nblk: int,
-    n_pad: int,
-    interpret: bool,
-    pen_full: bool = False,
-    last_full: bool = False,
-    n_real: int | None = None,
-):
-    """Build the bare batched scan pallas_call:
-    (values[n_pad,t]u32, masks[n_pad,t]u32, base[1]i32, row0[1]i32,
-    pw[g,h-3,128]u32 precomputed packed windows) -> lane-min offsets
-    [n_pad, LANES] i32 (end mask NOT applied; rows >= n_real are never
-    scanned and their output is unspecified — callers slice them away).
-    ``h`` is the cols row count (s + halo); pw carries h-3 window rows.
-
-    Grid = needle blocks ONLY; segments are walked by an in-kernel
-    ``while_loop`` with manually double-buffered DMA from HBM.  That makes
-    the early exit total: once every needle in the block is found the loop
-    ends and the remaining segments are neither scanned NOR fetched — no
-    grid step, no DMA, no scalar prologue.  (The previous (blocks, segments)
-    grid paid ~3-4 us of per-step machinery even for fully-skipped
-    segments — ~2 ms across a 36x14 grid, comparable to the whole sweep's
-    vector work.)
-
-    ``n_real``: number of real (non-padded) table rows, counted globally
-    across shards; ``row0`` is this shard's first global row (0 single-chip,
-    ``axis_index(needle) * n_local`` sharded).  Each block seeds its unfound
-    list with only its real rows, so padded rows cost zero scan work — vital
-    for the mask-free (pen_full/last_full) kernels, where an all-zero padded
-    row would otherwise never self-satisfy and scan every segment.
-
-    Exposed raw so the distributed scanner can call it inside shard_map with
-    a per-shard ``base``; probe tables use width ``t`` with static slot
-    offsets 4*t.
-
-    ``pen_full``: the caller guarantees slot t-2 holds a full-mask 4-byte
-    window on every row (true for exact-width groups: a width-t needle has
-    k >= 4t-3 > 4(t-2)+3, so only its final slot narrows).  The kernel then
-    compares slot t-2 without a mask — two fewer vector passes per
-    (needle, chunk).  All-zero padded rows still compare (as window == 0);
-    their end = 0 filters any spurious match outside the kernel, and the
-    in-kernel early exit tolerates them (a padded needle "found" early just
-    stops costing work sooner).
-
-    ``last_full``: additionally, every row's FINAL slot is full-mask (needle
-    lengths divisible by 4) — the whole probe chain is then plain compares,
-    no masks read at all.  Implies ``pen_full``."""
-    if last_full:
-        pen_full = True
-    if n_real is None:
-        n_real = n_pad
-    seg = s * LANES
-    cs, n_chunks, unrolled = _chunk_plan(s, t)
-    # Premasked final-slot windows: only the last slot carries a mask in
-    # pen_full (exact-width) tables, and with a single chunk the five
-    # premasked copies amortize over the whole block (2.5 MiB VMEM at
-    # cs=1024).  Saves the per-(needle, chunk) mask AND — ~1.2x on the
-    # never-match fullscan.
-    premask = unrolled and n_chunks == 1 and pen_full and not last_full
-
-    def kernel(
-        val_ref, msk_ref, base_ref, row0_ref, pw_hbm, out_ref,
-        pbuf, p4buf, sem, flags_scr, ulist_scr, *pm_extra,
-    ):
-        pm_scr = pm_extra[0] if premask else None
-        nbi = pl.program_id(0)
-
-        # ulist_scr[0:remaining] holds the indices of still-unfound needles:
-        # the needle loop iterates ONLY those (exact early-exit economics —
-        # found needles cost zero, not even a flag check per segment).
-        # Until the first compaction the list is the identity over this
-        # block's REAL rows (0..cnt0), tracked by the ``compacted`` carry
-        # flag instead of a per-block scalar seed loop — padded rows are
-        # excluded from the start and never cost a scan.
-        start = row0_ref[0] + nbi * nblk
-        cnt0 = jnp.clip(n_real - start, 0, nblk)
-
-        # One vectorized init per block replaces a per-(needle, segment)
-        # where(gi == 0, SENTINEL, prev) select in the epilogue; also pins
-        # never-scanned (padded) rows to SENTINEL instead of leaving them
-        # unspecified.
-        out_ref[:] = jnp.full((nblk, LANES), SENTINEL, jnp.int32)
-        flags_scr[:, :] = jnp.zeros((nblk, 1), jnp.int32)
-
-        seg_dma = _seg_dma_factory(pw_hbm, pbuf, p4buf, sem, h)
-
-        # Kick off segment 0 into slot 0 (waited by the first loop
-        # iteration).  Fully-padded trailing blocks (cnt0 == 0) never enter
-        # the loop, so they issue no HBM traffic at all — mirrored by the
-        # cnt0 guard on the epilogue drain.
-        @pl.when(cnt0 > 0)
-        def _():
-            for c in seg_dma(0, 0):
-                c.start()
-
-        # Constants shared by every segment: in-chunk row iota (the only
-        # per-position plane the probes need — the lane*s and seg_base
-        # components of the global offset are added on (1, LANES) minima in
-        # the per-needle epilogue) and the per-lane column base.
-        row_iota = jax.lax.broadcasted_iota(jnp.int32, (cs, LANES), 0)
-        lane_mul = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1) * s
-
-        def _scan_segment(gi, remaining, compacted):
-            slot = jax.lax.rem(gi, 2)
-            # Speculatively prefetch the next segment into the other slot
-            # while this one is scanned: wasted only on the final scanned
-            # segment (256 KB of read bandwidth), hidden behind compute
-            # otherwise.
-            @pl.when(gi + 1 < g)
-            def _():
-                for c in seg_dma(gi + 1, jax.lax.rem(gi + 1, 2)):
-                    c.start()
-
-            for c in seg_dma(gi, slot):
-                c.wait()
-            seg_base = base_ref[0] + gi * seg
-            hoisted = _hoist_windows(
-                pbuf, p4buf, slot, cs, t, unrolled, n_chunks
-            )
-            if premask:
-                if hoisted is not None:
-                    w_last = hoisted[t - 1]
-                else:
-                    src = pbuf if (t - 1) % 2 == 0 else p4buf
-                    off = pl.multiple_of(4 * ((t - 1) - (t - 1) % 2), 8)
-                    w_last = src[slot, pl.ds(off, cs), :]
-                _premask_fill(pm_scr, w_last)
-
-            def _scan_one(n):
-                if unrolled:
-                    vals, masked = _probe_row(
-                        val_ref, msk_ref, n, t, pen_full, last_full
-                    )
-                last_eq = None
-                if premask:
-                    cls = _premask_class(msk_ref[n, t - 1])
-                    last_eq = pm_scr[cls] == vals[t - 1]
-                    masked = ()
-
-                def chunk_body(ci, mins):
-                    row0 = pl.multiple_of(ci * cs, cs)
-                    if unrolled:
-                        windows = _windows_factory(
-                            pbuf, p4buf, slot, row0, cs, hoisted
-                        )
-                        acc = _unrolled_acc(windows, vals, masked, t, last_eq)
-                    else:
-                        acc = _pair_loop_acc(
-                            pbuf, p4buf, slot, row0, cs,
-                            val_ref, msk_ref, n, t,
-                        )
-                    # Per-lane min ROW of a match (NO_ROW when none): the
-                    # lane*s + seg_base components of the global offset are
-                    # lane/segment constants, added on the (1, LANES) result
-                    # in the epilogue — no per-position offset plane at all.
-                    lmin = jnp.min(
-                        jnp.where(acc, row_iota, NO_ROW),
-                        axis=0, keepdims=True,
-                    )
-                    return jnp.minimum(mins, lmin + row0)
-
-                init = jnp.full((1, LANES), NO_ROW, dtype=jnp.int32)
-                if n_chunks <= 4:
-                    # Unrolled: the scalar fori machinery is comparable to a
-                    # whole vector pass at these trip counts.
-                    mins = init
-                    for ci in range(n_chunks):
-                        mins = chunk_body(ci, mins)
-                else:
-                    mins = jax.lax.fori_loop(0, n_chunks, chunk_body, init)
-                gmin = jnp.where(
-                    mins < NO_ROW, mins + lane_mul + seg_base, SENTINEL
-                )
-                fin = jnp.minimum(out_ref[n, :].reshape(1, LANES), gmin)
-                out_ref[n, :] = fin.reshape(LANES)
-
-            def nth(idx):
-                # Identity until the first compaction (the list is never
-                # seeded); the SMEM read costs a few scalar cycles.
-                return jax.lax.select(compacted == 1, ulist_scr[idx], idx)
-
-            def scan_idx(idx):
-                _scan_one(nth(idx))
-
-            # Needle loop unrolled by four: the per-needle scalar dispatch
-            # (SMEM table reads, slice bookkeeping) runs at parity with the
-            # VPU on short probe chains, so interleaving independent needles'
-            # chains lets the scalar core run ahead.
-            def needle_quad(i, carry):
-                scan_idx(4 * i)
-                scan_idx(4 * i + 1)
-                scan_idx(4 * i + 2)
-                scan_idx(4 * i + 3)
-                return carry
-
-            jax.lax.fori_loop(0, remaining // 4, needle_quad, 0)
-
-            def needle_tail(i, carry):
-                scan_idx(i)
-                return carry
-
-            jax.lax.fori_loop(
-                (remaining // 4) * 4, remaining, needle_tail, 0
-            )
-
-            # Found flags for the whole block in ONE vectorized cross-lane
-            # reduce (per-needle scalar reduces are ~1.5k cycles each on the
-            # VPU), then left-compact the unfound list in place (reads run
-            # ahead of writes, so in-place is safe).  This is the reference's
-            # first-match early return (src/lib.rs:242-244) at segment
-            # granularity.  The compact loop is scalar work proportional to
-            # ``remaining`` and only runs when this segment found something
-            # new; its per-needle flag reads come straight from VMEM (an
-            # SMEM-staged copy was tried and measured slower — the staging
-            # DMA cost more than the VMEM scalar reads it saved).
-            block = out_ref[:]
-            found = (
-                jnp.min(block, axis=1, keepdims=True) < SENTINEL
-            ).astype(jnp.int32)
-            flags_scr[:, :] = found
-            # Padded / out-of-block rows are never scanned and stay SENTINEL
-            # (found=0), so the full-block sum counts exactly the real founds.
-            n_found = jnp.sum(found)
-            live = cnt0 - n_found
-            dead = remaining - live  # found entries still in the list
-
-            def compact(i, cnt):
-                n = nth(i)
-                keep = (flags_scr[n, 0] == 0).astype(jnp.int32)
-
-                @pl.when(keep == 1)
-                def _():
-                    ulist_scr[cnt] = n
-
-                return cnt + keep
-
-            remaining, compacted = jax.lax.cond(
-                jnp.logical_and(live > 0, dead > 0),
-                lambda: (jax.lax.fori_loop(0, remaining, compact, 0),
-                         jnp.int32(1)),
-                lambda: (remaining, compacted),
-            )
-            return remaining, live, compacted
-
-        # Walk segments until every needle in the block is found (or the
-        # corpus ends): the total early exit — later segments cost nothing.
-        def loop_cond(carry):
-            gi, _remaining, live, _compacted = carry
-            return jnp.logical_and(gi < g, live > 0)
-
-        def loop_body(carry):
-            gi, remaining, live, compacted = carry
-            remaining, live, compacted = _scan_segment(
-                gi, remaining, compacted
-            )
-            return gi + 1, remaining, live, compacted
-
-        gi_end, _rem, _live, _comp = jax.lax.while_loop(
-            loop_cond, loop_body,
-            (jnp.int32(0), cnt0, cnt0, jnp.int32(0)),
-        )
-
-        # Drain the in-flight speculative prefetch so no DMA outlives the
-        # kernel (all-padded blocks started nothing — cnt0 guard above).
-        @pl.when(jnp.logical_and(gi_end < g, cnt0 > 0))
-        def _():
-            for c in seg_dma(gi_end, jax.lax.rem(gi_end, 2)):
-                c.wait()
-
-    return pl.pallas_call(
-        kernel,
-        grid=(n_pad // nblk,),
-        in_specs=[
-            pl.BlockSpec((nblk, t), lambda nb: (nb, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((nblk, t), lambda nb: (nb, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1,), lambda nb: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1,), lambda nb: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),  # packed windows stay in HBM
-        ],
-        out_specs=pl.BlockSpec(
-            (nblk, LANES), lambda nb: (nb, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((n_pad, LANES), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((2, h - 3, LANES), jnp.uint32),
-            pltpu.VMEM((2, h - 7, LANES), jnp.uint32),
-            pltpu.SemaphoreType.DMA((2, 2)),
-            pltpu.VMEM((nblk, 1), jnp.int32),
-            pltpu.SMEM((nblk,), jnp.int32),
-        ] + ([pltpu.VMEM((5, cs, LANES), jnp.uint32)] if premask else []),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )
-
-
-@functools.lru_cache(maxsize=256)
-def _batched_call(
-    g: int,
-    h: int,
-    s: int,
-    t: int,
-    nblk: int,
-    n_pad: int,
-    n_out: int,
-    interpret: bool,
-    pen_full: bool = False,
-    last_full: bool = False,
-    n_real: int | None = None,
-):
-    """One fused device program: kernel + cross-lane min + end filter +
-    unpad slice — a single dispatch per search call (dispatch latency
-    matters more than any single pass here)."""
-    call = _raw_batched_call(
-        g, h, s, t, nblk, n_pad, interpret, pen_full, last_full,
-        n_real=n_out if n_real is None else n_real,
-    )
-    @jax.jit
-    def run(values, masks, ends, base, pw):
-        row0 = jnp.zeros((1,), jnp.int32)
-        out = call(values, masks, base, row0, pw)
-        first = jnp.min(out[:n_out], axis=-1)
-        return jnp.where(first < ends[:n_out], first, SENTINEL)
-
-    return run
+#: Needles per program: each window tile is compared against all of them
+#: while it sits in registers.
+NEEDLE_BLOCK = 8
+
+#: Rows per inner step: one (ROWS, 128) uint32 window tile per probe slot.
+ROWS = 8
+
+#: Programs one launch aims for (several per SM of a 132-SM card).  A
+#: launch with fewer needle blocks splits the corpus's segments to get
+#: there; more splits only cost an early-exit check each.
+TARGET_PROGRAMS = 1024
+
+#: Probe tables up to this width are unrolled; wider (long-needle) tables
+#: loop over their slots, bounding compile time and code size.
+UNROLL_T = 16
+
+_PARAMS = plgpu.CompilerParams(num_warps=4, num_stages=2)
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def plan_block(n: int, t: int) -> tuple[int, int]:
-    """(nblk, n_pad) for an n-needle width-t table — the single source of
-    truth shared by the wrapper and by callers that pre-pad device-resident
-    tables (so no per-call padding dispatches happen on the hot path).
-
-    SMEM budget: two (nblk, t) uint32 tables stay a few KiB; VMEM budget:
-    (nblk, 128) out blocks + flag reduction cap nblk at 256."""
-    cap = max(8, min(256, _round_up(2048 // max(t, 1), 8)))
-    nblk = min(config.NEEDLE_BLOCK, cap, _round_up(max(n, 1), 8))
-    return nblk, _round_up(max(n, 1), nblk)
+def plan_block(n: int, shards: int = 1) -> int:
+    """Padded table rows for ``n`` needles split over ``shards`` needle
+    shards: a multiple of ``NEEDLE_BLOCK * shards``.  The one needle-block
+    plan, shared by the pre-padded device tables of models/batched.py and
+    the sharded scanner (so the hot path issues no padding dispatches)."""
+    return _round_up(max(n, 1), NEEDLE_BLOCK * shards)
 
 
-@jax.jit
-def _lane_reduce(out):
-    return jnp.min(out, axis=-1)
+def _probe_chain(vt_ref, mt_ref, pw_ref, blk, t: int):
+    """``match(gi, r0) -> bool (NEEDLE_BLOCK, ROWS, 128)``: the block's
+    probe chain over window rows ``r0 .. r0 + ROWS`` of segment ``gi``.
+    Slot ``ti`` compares the window ``4 * ti`` rows further down the same
+    lane under its mask; a mask-0 slot is trivially true."""
 
+    def window(gi, r0, ti):
+        return pw_ref[gi, pl.ds(r0 + 4 * ti, ROWS), :][None]
 
-def batched_find_cols(
-    cols: jax.Array | None,
-    values: np.ndarray,
-    masks: np.ndarray,
-    ends: np.ndarray,
-    s: int,
-    base: int | jax.Array = 0,
-    nblk: int | None = None,
-    interpret: bool | None = None,
-    pen_full: bool = False,
-    last_full: bool = False,
-    n_real: int | None = None,
-    pw: jax.Array | None = None,
-) -> jax.Array:
-    """First-match offsets (int32[N], SENTINEL when absent) of N needles over
-    the tiled haystack.  ``n_real``: true (non-padded) row count when the
-    caller passes PRE-padded tables — rows >= n_real are never scanned and
-    return unspecified values (slice them away).  ``base`` is added to all reported offsets (global
-    offset of this shard's first byte, for the distributed scanner).
-    ``pen_full``: caller guarantees slot t-2 is a full-mask window on every
-    non-padded row (exact-width tables) — saves two vector passes per chunk.
-    ``last_full``: every slot is full-mask (lengths divisible by 4, exact
-    width) — the probe chain is plain compares, no masks read.
+    if t <= UNROLL_T:
+        vals = [vt_ref[ti, blk][:, None, None] for ti in range(t)]
+        msks = [mt_ref[ti, blk][:, None, None] for ti in range(t)]
 
-    CONTRACT: every probe slot except the last two must hold a full-mask
-    4-byte window (the kernel compares earlier slots without masks; the last
-    two use their masks, so tables may mix needles of width t and t-1), and
-    values must be pre-masked (``v & m == v`` — the kernels use the 2-op
-    ``(w & m) == v`` compare).  Tables built per width group
-    (models/batched.py, parallel/shard_scan.py) satisfy both by construction
-    (build_probe_table pre-masks); host ndarray tables are re-masked here
-    defensively.  Padded rows (all-zero masks) are permitted only when their
-    ``end`` is 0.
+        def match(gi, r0):
+            acc = None
+            for ti in range(t):
+                eq = (window(gi, r0, ti) & msks[ti]) == vals[ti]
+                acc = eq if acc is None else jnp.logical_and(acc, eq)
+            return acc
 
-    ``pw``: precomputed packed windows (``DeviceHaystack.windows()``);
-    derived from ``cols`` on the fly when absent (one extra pass over the
-    corpus — hot paths pass it)."""
-    if pw is None:
-        from .layout import _pack_all
+        return match
 
-        pw = _pack_all(cols)
-        g, h, lanes = cols.shape
-    else:
-        g, rows, lanes = pw.shape
-        h = rows + 3
-    assert lanes == LANES
-    if isinstance(values, np.ndarray) and isinstance(masks, np.ndarray):
-        values = values & masks
-    n, t = values.shape
-    if t > PROBE_UNROLL:
-        # The pair-looped long-needle path always applies masks.
-        pen_full = last_full = False
-    if last_full:
-        pen_full = True
-    if isinstance(masks, np.ndarray):
-        _check_width_contract(masks, t, pen_full, last_full)
-    if (
-        pen_full
-        and not last_full
-        and isinstance(masks, np.ndarray)
-        and not _premask_classes_ok(masks)
-    ):
-        # Exotic final masks can't ride the premasked-window path; keep the
-        # exact per-needle masked compare instead.
-        pen_full = False
-    if t > PROBE_UNROLL and t % 2:
-        # Pair-looped path needs an even width; a mask-0 slot is a no-op.
-        values = np.pad(np.asarray(values), ((0, 0), (0, 1)))
-        masks = np.pad(np.asarray(masks), ((0, 0), (0, 1)))
-        t += 1
-    # Probe slots must fit the layout halo: last slot reads rows 4*(t-1)..+3.
-    assert 4 * t - 1 <= h - s + 0, (
-        f"probe table width {t} needs {4 * t - 1} halo bytes, layout has {h - s}"
-    )
-    if nblk is None:
-        nblk, n_pad = plan_block(n, t)
-    else:
-        nblk = max(8, min(nblk, 256, _round_up(2048 // max(t, 1), 8)))
-        n_pad = _round_up(n, nblk)
-    values = jnp.asarray(values, jnp.uint32)
-    masks = jnp.asarray(masks, jnp.uint32)
-    ends = jnp.asarray(ends, jnp.int32)
-    if n_pad != n:
-        # Callers on the hot path pre-pad device tables via plan_block and
-        # never reach these dispatches.
-        pad = ((0, n_pad - n), (0, 0))
-        values = jnp.pad(values, pad)
-        masks = jnp.pad(masks, pad)  # mask=0 -> probe always true
-        ends = jnp.pad(ends, ((0, n_pad - n),))  # end=0 -> no valid
-    if interpret is None:
-        interpret = config.use_interpret()
-    run = _batched_call(
-        g, h, s, t, nblk, n_pad, n, interpret, pen_full, last_full,
-        n_real=n_real,
-    )
-    if isinstance(base, (int, np.integer)):
-        base = jnp.asarray([base], jnp.int32)
-    return run(values, masks, ends, base.reshape(1), pw)
+    def match(gi, r0):
+        def slot(ti, acc):
+            v = vt_ref[ti, blk][:, None, None]
+            m = mt_ref[ti, blk][:, None, None]
+            return jnp.logical_and(acc, (window(gi, r0, ti) & m) == v)
 
-
-@functools.lru_cache(maxsize=64)
-def _memchr_call(g: int, h: int, s: int, interpret: bool):
-    """1-byte-needle kernel: a single widened lane compare per position — the
-    ``MemchrSearcher`` analogue (reference src/lib.rs:119-142), reading the
-    raw byte tile with no window packing."""
-    seg = s * LANES
-
-    def kernel(byte_ref, end_ref, base_ref, cols_ref, out_ref, found_scr):
-        gi = pl.program_id(0)
-
-        def _scan():
-            seg_base = base_ref[0] + gi * seg
-            # v5e Mosaic has no native 8-bit vector compare; widen to int32.
-            tile = cols_ref[0, :s, :].astype(jnp.int32)
-            match = tile == byte_ref[0]
-            lane_min = lane_first_offset(
-                match, end_ref[0] - seg_base, s, 0, seg_base
-            )
-            prev = jnp.where(
-                gi == 0, jnp.int32(SENTINEL), out_ref[0, :].reshape(1, LANES)
-            )
-            fin = jnp.minimum(prev, lane_min)
-            out_ref[0, :] = fin.reshape(LANES)
-            found_scr[0] = (jnp.min(fin) < SENTINEL).astype(jnp.int32)
-
-        # First-byte-found early exit across segments (memchr semantics).
-        @pl.when(jnp.logical_or(gi == 0, found_scr[0] == 0))
-        def _():
-            _scan()
-
-    return pl.pallas_call(
-        kernel,
-        grid=(g,),
-        in_specs=[
-            pl.BlockSpec((1,), lambda gi: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1,), lambda gi: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1,), lambda gi: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, h, LANES), lambda gi: (gi, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, LANES), lambda gi: (0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((1, LANES), jnp.int32),
-        scratch_shapes=[pltpu.SMEM((1,), jnp.int32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)
-        ),
-        interpret=interpret,
-    )
-
-
-def memchr_find_cols(
-    cols: jax.Array,
-    byte: int,
-    end: int,
-    s: int,
-    base: int | jax.Array = 0,
-    interpret: bool | None = None,
-) -> jax.Array:
-    g, h, lanes = cols.shape
-    assert lanes == LANES
-    if interpret is None:
-        interpret = config.use_interpret()
-    call = _memchr_call(g, h, s, interpret)
-    out = call(
-        jnp.asarray([byte], jnp.int32),
-        jnp.asarray([end], jnp.int32),
-        jnp.asarray([base], jnp.int32),
-        cols,
-    )
-    return _lane_reduce(out)[0]
-
-
-@functools.lru_cache(maxsize=128)
-def _raw_count_call(
-    g: int,
-    h: int,
-    s: int,
-    t: int,
-    nblk: int,
-    n_pad: int,
-    interpret: bool,
-    pen_full: bool = False,
-    last_full: bool = False,
-    n_real: int | None = None,
-):
-    """Occurrence-count kernel: same probe machinery and blocks-only grid
-    as `_raw_batched_call` (segments walked in-kernel with double-buffered
-    DMA) but accumulating per-lane counts of OVERLAPPING matches instead of
-    a running min — and no early exit (a count must scan everything, so
-    the segment walk is a plain ``fori_loop``; the old (blocks, segments)
-    grid paid ~3-4 us of per-step machinery, ~1.8 ms across a 36x14 grid).
-    The valid-position bound (``pos < end``, the reference's
-    ``end = len - k + 1`` rule, src/lib.rs:258) is applied in-kernel per
-    needle, since spurious tail "matches" would otherwise inflate counts.
-
-    (values[n_pad,t]u32, masks[n_pad,t]u32, ends[n_pad,1]i32, base[1]i32,
-    row0[1]i32, pw[g,h-3,128]u32) -> lane counts [n_pad, LANES] i32 (rows
-    >= n_real unspecified)."""
-    if last_full:
-        pen_full = True
-    if n_real is None:
-        n_real = n_pad
-    seg = s * LANES
-    cs, n_chunks, unrolled = _chunk_plan(s, t)
-    # Same premasked final-slot window amortization as the find kernel.
-    premask = unrolled and n_chunks == 1 and pen_full and not last_full
-
-    def kernel(
-        val_ref, msk_ref, end_ref, base_ref, row0_ref, pw_hbm, out_ref,
-        pbuf, p4buf, sem, *pm_extra,
-    ):
-        pm_scr = pm_extra[0] if premask else None
-        nbi = pl.program_id(0)
-        start = row0_ref[0] + nbi * nblk
-        cnt = jnp.clip(n_real - start, 0, nblk)
-        out_ref[:] = jnp.zeros((nblk, LANES), jnp.int32)
-
-        seg_dma = _seg_dma_factory(pw_hbm, pbuf, p4buf, sem, h)
-        row_iota = jax.lax.broadcasted_iota(jnp.int32, (cs, LANES), 0)
-        lane_mul = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1) * s
-
-        # Smallest valid-position bound across this block's REAL rows: any
-        # segment lying entirely below it is CLEAN — every position valid
-        # for every needle — and skips the per-needle validity plane (two
-        # vector passes per (needle, chunk)).  Only the 1-2 segments
-        # straddling an end (corpus tail / streaming window clamp) pay the
-        # masked path.  (r4 applied the mask every segment: count[t=2]
-        # measured ~3x the find kernel's probe chain on the i386 sweep.)
-        end_min = jax.lax.fori_loop(
-            0, cnt,
-            lambda i, m: jnp.minimum(m, end_ref[i, 0]),
-            jnp.int32(0x7FFFFFFF),
+        return jax.lax.fori_loop(
+            0, t, slot, jnp.ones((NEEDLE_BLOCK, ROWS, LANES), jnp.bool_)
         )
 
-        def _scan_segment(gi, carry):
-            slot = jax.lax.rem(gi, 2)
+    return match
 
-            @pl.when(gi + 1 < g)
-            def _():
-                for c in seg_dma(gi + 1, jax.lax.rem(gi + 1, 2)):
-                    c.start()
 
-            for c in seg_dma(gi, slot):
-                c.wait()
-            seg_base = base_ref[0] + gi * seg
-            hoisted = _hoist_windows(
-                pbuf, p4buf, slot, cs, t, unrolled, n_chunks
+def plan_splits(n_blocks: int, g: int) -> int:
+    """Corpus splits for a launch of ``n_blocks`` needle blocks over ``g``
+    segments."""
+    return max(1, min(g, -(-TARGET_PROGRAMS // max(n_blocks, 1))))
+
+
+@functools.lru_cache(maxsize=256)
+def _find_call(g: int, rows: int, s: int, t: int, n_pad: int,
+               n_splits: int, interpret: bool):
+    """Bare find kernel: (values^T (t, n_pad) u32, masks^T (t, n_pad) u32,
+    pw (g, rows, 128) u32, init (n_pad,) i32 = SENTINEL) -> raw first-match
+    offsets (n_pad,) i32, relative to the layout's first byte, ``ends`` not
+    yet applied.  Mask-0 rows (table padding) match at offset 0."""
+    nb = NEEDLE_BLOCK
+    seg = s * LANES
+    gps = -(-g // n_splits)
+    n_chunks = s // ROWS
+
+    def kernel(vt_ref, mt_ref, pw_ref, init_ref, out_ref):
+        del init_ref  # aliased to out_ref: the SENTINEL-filled minima
+        blk = pl.ds(pl.program_id(0) * nb, nb)
+        g_lo = pl.program_id(1) * gps
+        g_hi = jnp.minimum(g_lo + gps, g)
+        match = _probe_chain(vt_ref, mt_ref, pw_ref, blk, t)
+        pos0 = (
+            jax.lax.broadcasted_iota(jnp.int32, (ROWS, LANES), 1) * s
+            + jax.lax.broadcasted_iota(jnp.int32, (ROWS, LANES), 0)
+        )
+
+        def settled(minima, gi):
+            # Every needle of the block has a match before segment gi.
+            return jnp.max(jnp.where(minima < gi * seg, 0, 1)) == 0
+
+        def scan_segment(carry):
+            gi, best, _ = carry
+
+            def chunk(ci, mins):
+                r0 = ci * ROWS
+                hit = jnp.where(match(gi, r0), pos0 + r0, SENTINEL)
+                return jnp.minimum(mins, hit)
+
+            mins = jax.lax.fori_loop(
+                0, n_chunks, chunk,
+                jnp.full((nb, ROWS, LANES), SENTINEL, jnp.int32),
             )
-            if premask:
-                if hoisted is not None:
-                    w_last = hoisted[t - 1]
-                else:
-                    src = pbuf if (t - 1) % 2 == 0 else p4buf
-                    off = pl.multiple_of(4 * ((t - 1) - (t - 1) % 2), 8)
-                    w_last = src[slot, pl.ds(off, cs), :]
-                _premask_fill(pm_scr, w_last)
+            seg_min = jnp.min(jnp.min(mins, axis=2), axis=1)
+            best = jnp.minimum(
+                best, jnp.where(seg_min < SENTINEL, seg_min + gi * seg,
+                                SENTINEL)
+            )
+            # Publish; the old value folds in what other splits found.
+            glob = jnp.minimum(plgpu.atomic_min(out_ref, blk, best), best)
+            return gi + 1, best, settled(glob, gi + 1)
 
-            def _count_one(n, apply_end):
-                if unrolled:
-                    vals, masked = _probe_row(
-                        val_ref, msk_ref, n, t, pen_full, last_full
-                    )
-                last_eq = None
-                if premask:
-                    cls = _premask_class(msk_ref[n, t - 1])
-                    last_eq = pm_scr[cls] == vals[t - 1]
-                    masked = ()
-                if apply_end:
-                    end_n = end_ref[n, 0]
-                    # Per-lane valid-row threshold: pos = lane*s + row +
-                    # seg_base < end  <=>  row < thr[lane]; a (1, LANES)
-                    # plane instead of a full per-position offset plane.
-                    thr = end_n - seg_base - lane_mul
+        glob0 = plgpu.atomic_min(
+            out_ref, blk, jnp.full((nb,), SENTINEL, jnp.int32)
+        )
+        jax.lax.while_loop(
+            lambda c: jnp.logical_and(c[0] < g_hi, jnp.logical_not(c[2])),
+            scan_segment,
+            (g_lo, jnp.full((nb,), SENTINEL, jnp.int32), settled(glob0, g_lo)),
+        )
 
-                def chunk_body(ci, lane_counts):
-                    row0 = pl.multiple_of(ci * cs, cs)
-                    if unrolled:
-                        windows = _windows_factory(
-                            pbuf, p4buf, slot, row0, cs, hoisted
-                        )
-                        acc = _unrolled_acc(windows, vals, masked, t, last_eq)
-                    else:
-                        acc = _pair_loop_acc(
-                            pbuf, p4buf, slot, row0, cs,
-                            val_ref, msk_ref, n, t,
-                        )
-                    if apply_end:
-                        acc = jnp.logical_and(acc, row_iota < (thr - row0))
-                    return lane_counts + jnp.sum(
-                        acc.astype(jnp.int32), axis=0, keepdims=True
-                    )
-
-                init = jnp.zeros((1, LANES), dtype=jnp.int32)
-                if n_chunks <= 4:
-                    counts = init
-                    for ci in range(n_chunks):
-                        counts = chunk_body(ci, counts)
-                else:
-                    counts = jax.lax.fori_loop(0, n_chunks, chunk_body, init)
-                out_ref[n, :] = (
-                    out_ref[n, :].reshape(1, LANES) + counts
-                ).reshape(LANES)
-
-            def needle_loops(apply_end):
-                # Needle loop unrolled by four (scalar dispatch interleaves
-                # with VPU work, as in the find kernel).
-                def needle_quad(i, c):
-                    _count_one(4 * i, apply_end)
-                    _count_one(4 * i + 1, apply_end)
-                    _count_one(4 * i + 2, apply_end)
-                    _count_one(4 * i + 3, apply_end)
-                    return c
-
-                jax.lax.fori_loop(0, cnt // 4, needle_quad, 0)
-
-                def needle_tail(i, c):
-                    _count_one(i, apply_end)
-                    return c
-
-                jax.lax.fori_loop((cnt // 4) * 4, cnt, needle_tail, 0)
-
-            clean = seg_base + seg <= end_min
-
-            @pl.when(clean)
-            def _():
-                needle_loops(apply_end=False)
-
-            @pl.when(jnp.logical_not(clean))
-            def _():
-                needle_loops(apply_end=True)
-
-            return carry
-
-        # Full walk — no early exit (counts need every segment); the final
-        # body waits segment g-1 and starts nothing, so no drain is needed.
-        # Fully-padded blocks (cnt == 0, e.g. trailing needle shards) skip
-        # the walk AND its DMA entirely (nothing was started before this).
-        @pl.when(cnt > 0)
-        def _():
-            for c in seg_dma(0, 0):
-                c.start()
-            jax.lax.fori_loop(0, g, _scan_segment, 0)
-
+    full = lambda *shape: pl.BlockSpec(shape, lambda b, sp: (0,) * len(shape))
     return pl.pallas_call(
         kernel,
-        grid=(n_pad // nblk,),
+        grid=(n_pad // nb, n_splits),
         in_specs=[
-            pl.BlockSpec((nblk, t), lambda nb: (nb, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((nblk, t), lambda nb: (nb, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((nblk, 1), lambda nb: (nb, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1,), lambda nb: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1,), lambda nb: (0,), memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),  # packed windows stay in HBM
+            full(t, n_pad), full(t, n_pad), full(g, rows, LANES), full(n_pad),
         ],
-        out_specs=pl.BlockSpec(
-            (nblk, LANES), lambda nb: (nb, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((n_pad, LANES), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((2, h - 3, LANES), jnp.uint32),
-            pltpu.VMEM((2, h - 7, LANES), jnp.uint32),
-            pltpu.SemaphoreType.DMA((2, 2)),
-        ] + ([pltpu.VMEM((5, cs, LANES), jnp.uint32)] if premask else []),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
+        out_specs=full(n_pad),
+        out_shape=jax.ShapeDtypeStruct((n_pad,), jnp.int32),
+        input_output_aliases={3: 0},
+        backend="triton",
+        compiler_params=_PARAMS,
         interpret=interpret,
+        name="sliceslice_find",
     )
 
 
 @functools.lru_cache(maxsize=128)
-def _count_call(
-    g: int, h: int, s: int, t: int, nblk: int, n_pad: int, n_out: int,
-    interpret: bool, pen_full: bool = False, last_full: bool = False,
-    n_real: int | None = None,
-):
-    call = _raw_count_call(
-        g, h, s, t, nblk, n_pad, interpret, pen_full, last_full,
-        n_real=n_out if n_real is None else n_real,
+def _count_call(g: int, rows: int, s: int, t: int, n_pad: int,
+                n_splits: int, interpret: bool):
+    """Count variant of :func:`_find_call` (same grid and tiles, no early
+    exit): (values^T, masks^T, ends (n_pad,) i32, pw) -> per-split partial
+    counts (n_splits, n_pad) i32 of matches at positions < ends."""
+    nb = NEEDLE_BLOCK
+    seg = s * LANES
+    gps = -(-g // n_splits)
+    n_chunks = s // ROWS
+
+    def kernel(vt_ref, mt_ref, end_ref, pw_ref, out_ref):
+        blk = pl.ds(pl.program_id(0) * nb, nb)
+        sp = pl.program_id(1)
+        g_lo = sp * gps
+        g_hi = jnp.minimum(g_lo + gps, g)
+        match = _probe_chain(vt_ref, mt_ref, pw_ref, blk, t)
+        ends = end_ref[blk][:, None, None]
+        pos0 = (
+            jax.lax.broadcasted_iota(jnp.int32, (ROWS, LANES), 1) * s
+            + jax.lax.broadcasted_iota(jnp.int32, (ROWS, LANES), 0)
+        )
+
+        def segment(gi, counts):
+            def chunk(ci, counts):
+                r0 = ci * ROWS
+                valid = (pos0 + (gi * seg + r0))[None] < ends
+                acc = jnp.logical_and(valid, match(gi, r0))
+                return counts + acc.astype(jnp.int32)
+
+            return jax.lax.fori_loop(0, n_chunks, chunk, counts)
+
+        counts = jax.lax.fori_loop(
+            g_lo, g_hi, segment, jnp.zeros((nb, ROWS, LANES), jnp.int32)
+        )
+        out_ref[sp, blk] = jnp.sum(jnp.sum(counts, axis=2), axis=1)
+
+    full = lambda *shape: pl.BlockSpec(shape, lambda b, sp: (0,) * len(shape))
+    return pl.pallas_call(
+        kernel,
+        grid=(n_pad // nb, n_splits),
+        in_specs=[
+            full(t, n_pad), full(t, n_pad), full(n_pad), full(g, rows, LANES),
+        ],
+        out_specs=full(n_splits, n_pad),
+        out_shape=jax.ShapeDtypeStruct((n_splits, n_pad), jnp.int32),
+        backend="triton",
+        compiler_params=_PARAMS,
+        interpret=interpret,
+        name="sliceslice_count",
     )
 
-    @jax.jit
-    def run(values, masks, ends, base, pw):
-        row0 = jnp.zeros((1,), jnp.int32)
-        out = call(values, masks, ends.reshape(-1, 1), base, row0, pw)
-        return jnp.sum(out[:n_out], axis=-1)
 
-    return run
+def count_raw(values, masks, ends, pw, s: int):
+    """Overlapping match counts (int32[n_pad]) at positions < ``ends`` of a
+    pre-padded (n_pad, t) table over packed windows ``pw``.  Traceable,
+    like :func:`find_raw`."""
+    _check_shapes(values, pw, s)
+    g, rows, _ = pw.shape
+    n_pad, t = values.shape
+    call = _count_call(
+        g, rows, s, t, n_pad, plan_splits(n_pad // NEEDLE_BLOCK, g),
+        config.use_interpret(),
+    )
+    return jnp.sum(call(values.T, masks.T, ends, pw), axis=0)
 
 
-def batched_count_cols(
-    cols: jax.Array | None,
-    values: np.ndarray,
-    masks: np.ndarray,
-    ends: np.ndarray,
-    s: int,
-    base: int | jax.Array = 0,
-    nblk: int | None = None,
-    interpret: bool | None = None,
-    pen_full: bool = False,
-    last_full: bool = False,
-    n_real: int | None = None,
-    pw: jax.Array | None = None,
-) -> jax.Array:
-    """Count of OVERLAPPING occurrences (int32[N]) of N needles over the
-    tiled haystack — capability extension over the reference's bool
-    ``search_in`` (counts need the same full scan a no-match search does,
-    so there is no early-exit economics to recover).  Same probe-table
-    contract as :func:`batched_find_cols` (incl. pre-masked values and the
-    optional precomputed ``pw`` windows)."""
+def _check_shapes(values, pw, s: int) -> None:
+    g, rows, lanes = pw.shape
+    assert lanes == LANES
+    t = values.shape[1]
+    # Probe slots must fit the layout halo: the last slot reads window
+    # rows 4*(t-1) .. 4*(t-1) + s - 1 of each segment.
+    assert 4 * (t - 1) + s <= rows, (
+        f"probe table width {t} needs {4 * t - 1} halo bytes, layout has "
+        f"{rows + 3 - s}"
+    )
+    assert values.shape[0] % NEEDLE_BLOCK == 0, "pad tables with plan_block"
+
+
+def find_raw(values, masks, pw, s: int):
+    """Raw first-match offsets (int32[n_pad], SENTINEL absent, ``ends`` not
+    applied) of a pre-padded (n_pad, t) table over packed windows ``pw``
+    (g, rows, 128).  Traceable: the sharded scanner calls it per shard
+    inside ``shard_map``."""
+    _check_shapes(values, pw, s)
+    g, rows, _ = pw.shape
+    n_pad, t = values.shape
+    call = _find_call(
+        g, rows, s, t, n_pad, plan_splits(n_pad // NEEDLE_BLOCK, g),
+        config.use_interpret(),
+    )
+    return call(
+        values.T, masks.T, pw, jnp.full((n_pad,), SENTINEL, jnp.int32)
+    )
+
+
+def _prepare(cols, values, masks, ends, pw):
+    """Shared wrapper front: packed windows (built from ``cols`` when the
+    caller has none), defensively re-masked host tables, and tables padded
+    to the block plan (mask 0 and end 0 on padded rows: never reported)."""
     if pw is None:
         from .layout import _pack_all
 
         pw = _pack_all(cols)
-        g, h, lanes = cols.shape
-    else:
-        g, rows, lanes = pw.shape
-        h = rows + 3
-    assert lanes == LANES
     if isinstance(values, np.ndarray) and isinstance(masks, np.ndarray):
         values = values & masks
-    n, t = values.shape
-    if t > PROBE_UNROLL:
-        pen_full = last_full = False
-    if (
-        pen_full
-        and not last_full
-        and isinstance(masks, np.ndarray)
-        and not _premask_classes_ok(masks)
-    ):
-        # Exotic final masks can't ride the premasked-window path (see
-        # batched_find_cols); keep the exact per-needle masked compare.
-        pen_full = False
-    if isinstance(masks, np.ndarray):
-        _check_width_contract(masks, t, pen_full, last_full)
-    if t > PROBE_UNROLL and t % 2:
-        values = np.pad(np.asarray(values), ((0, 0), (0, 1)))
-        masks = np.pad(np.asarray(masks), ((0, 0), (0, 1)))
-        t += 1
-    assert 4 * t - 1 <= h - s, (
-        f"probe table width {t} needs {4 * t - 1} halo bytes, layout has {h - s}"
-    )
-    if nblk is None:
-        nblk, n_pad = plan_block(n, t)
-    else:
-        nblk = max(8, min(nblk, 256, _round_up(2048 // max(t, 1), 8)))
-        n_pad = _round_up(n, nblk)
+    n = values.shape[0]
+    n_pad = plan_block(n)
     values = jnp.asarray(values, jnp.uint32)
     masks = jnp.asarray(masks, jnp.uint32)
     ends = jnp.asarray(ends, jnp.int32)
@@ -1074,12 +313,64 @@ def batched_count_cols(
         values = jnp.pad(values, pad)
         masks = jnp.pad(masks, pad)
         ends = jnp.pad(ends, ((0, n_pad - n),))
-    if interpret is None:
-        interpret = config.use_interpret()
-    run = _count_call(
-        g, h, s, t, nblk, n_pad, n, interpret, pen_full, last_full,
-        n_real=n_real,
-    )
-    if isinstance(base, (int, np.integer)):
-        base = jnp.asarray([base], jnp.int32)
-    return run(values, masks, ends, base.reshape(1), pw)
+    return pw, values, masks, ends, n
+
+
+@functools.partial(jax.jit, static_argnums=(4, 5))
+def _find_run(values, masks, ends, pw, s: int, n: int):
+    first = find_raw(values, masks, pw, s)[:n]
+    return jnp.where(first < ends[:n], first, SENTINEL)
+
+
+def batched_find_cols(
+    cols: jax.Array | None,
+    values,
+    masks,
+    ends,
+    s: int,
+    pw: jax.Array | None = None,
+) -> jax.Array:
+    """First-match offsets (int32[N], SENTINEL when absent) of N needles over
+    the tiled haystack — one fused device program.
+
+    Every probe slot compares under its mask, so one table may mix needle
+    widths (a mask-0 slot is trivially true).  CONTRACT: values are
+    pre-masked (``v & m == v``); host ndarray tables are re-masked here
+    defensively, and build_probe_table tables satisfy it by construction.
+    Rows whose ``end`` is 0 never report a match.
+
+    ``pw``: precomputed packed windows (``DeviceHaystack.windows()``);
+    derived from ``cols`` when absent (one extra pass over the corpus — hot
+    paths pass it)."""
+    pw, values, masks, ends, n = _prepare(cols, values, masks, ends, pw)
+    return _find_run(values, masks, ends, pw, s, n)
+
+
+@functools.partial(jax.jit, static_argnums=(4, 5))
+def _count_run(values, masks, ends, pw, s: int, n: int):
+    return count_raw(values, masks, ends, pw, s)[:n]
+
+
+def batched_count_cols(
+    cols: jax.Array | None,
+    values,
+    masks,
+    ends,
+    s: int,
+    pw: jax.Array | None = None,
+) -> jax.Array:
+    """Count of OVERLAPPING occurrences (int32[N]) of N needles over the
+    tiled haystack — capability extension over the reference's bool
+    ``search_in`` (a count scans every position: no early exit).  Same
+    table contract and ``pw`` handling as :func:`batched_find_cols`."""
+    pw, values, masks, ends, n = _prepare(cols, values, masks, ends, pw)
+    return _count_run(values, masks, ends, pw, s, n)
+
+
+def memchr_find_cols(cols: jax.Array, byte: int, end: int, s: int):
+    """First offset of one byte over the tiled uint8 layout (SENTINEL when
+    absent) — the ``MemchrSearcher`` analogue (reference
+    src/lib.rs:119-142), plain XLA."""
+    from . import xla_backend
+
+    return xla_backend.memchr_cols(cols, byte, end, s)

@@ -1,9 +1,8 @@
 """Shared scan math used by both the Pallas kernels and the XLA fallback path.
 
-Single source of truth for the packed-window probe evaluation (the TPU
+Single source of truth for the packed-window probe evaluation (the device
 re-expression of the reference's cmpeq+and+movemask filter and memcmp verify,
-src/lib.rs:199-251): operating on values, callable from inside a Pallas kernel
-body (Mosaic) and from plain jitted XLA alike.
+src/lib.rs:199-251), used by the plain jitted XLA paths.
 """
 
 from __future__ import annotations
@@ -21,8 +20,8 @@ def packed_windows(tile_u8: jax.Array) -> jax.Array:
     """uint8[(H, L)] -> uint32[(H-3, L)] of little-endian 4-byte windows.
 
     ``P[s, c] = b[s,c] | b[s+1,c]<<8 | b[s+2,c]<<16 | b[s+3,c]<<24`` — the
-    4-byte window starting at each flat position, built from 3 sublane-shifted
-    ORs so the haystack is read from HBM exactly once per pass.
+    4-byte window starting at each flat position, built from 3 row-shifted
+    ORs so the haystack is read from device memory once per pass.
     """
     b = tile_u8.astype(jnp.uint32)
     h = b.shape[0]
@@ -65,22 +64,6 @@ def segment_positions(s: int) -> jax.Array:
     row = jax.lax.broadcasted_iota(jnp.int32, (s, LANES), 0)
     lane = jax.lax.broadcasted_iota(jnp.int32, (s, LANES), 1)
     return lane * s + row
-
-
-def lane_first_offset(match, end_local, s: int, row0, seg_base) -> jax.Array:
-    """Per-lane min global offset, shape (1, LANES) int32, SENTINEL absent.
-
-    Reduces only along sublanes (cheap on the VPU); the final cross-lane min
-    is deferred to the caller — once per needle instead of once per
-    (chunk, needle), which is what keeps the kernel on the fast path.
-    """
-    rows = match.shape[0]
-    row = jax.lax.broadcasted_iota(jnp.int32, (rows, LANES), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (rows, LANES), 1)
-    pos = lane * s + row + row0
-    valid = jnp.logical_and(match, pos < end_local)
-    gpos = jnp.where(valid, pos + seg_base, SENTINEL)
-    return jnp.min(gpos, axis=0, keepdims=True)
 
 
 def first_offset(match, end_local, s: int, row0=0) -> jax.Array:

@@ -2,7 +2,7 @@
 
 The role of the reference's portable ``StdSimdSearcher`` (src/stdsimd.rs) —
 one algorithm expressed through the compiler's portable vector model, running
-on any JAX backend (CPU/TPU), used both as the short-haystack rung of the
+on any JAX backend (CPU/GPU), used both as the short-haystack rung of the
 dispatch ladder and as a differential-testing reference for the Pallas
 kernels (the way the reference tests wasm under wasmtime, check.yml).
 
@@ -109,6 +109,60 @@ def find_batched_cols(cols, values, masks, ends, s: int):
     )
 
 
+@functools.partial(jax.jit, static_argnums=(4,))
+def _count_batched_impl(pw, values, masks, ends, s):
+    seg = s * 128
+    t_num = values.shape[1]
+    pos = segment_positions(s)
+
+    def one(vals, msks, end):
+        def body(g, total):
+            p = jax.lax.dynamic_index_in_dim(pw, g, axis=0, keepdims=False)
+            probes = [(4 * t, vals[t], msks[t]) for t in range(t_num)]
+            acc = probe_acc(value_slicer(p, s), probes)
+            valid = jnp.logical_and(acc, pos < end - g * seg)
+            return total + jnp.sum(valid.astype(jnp.int32))
+
+        return jax.lax.fori_loop(0, pw.shape[0], body, jnp.int32(0))
+
+    return jax.vmap(one)(values, masks, ends)
+
+
+def count_batched_cols(pw, values, masks, ends, s: int):
+    """Overlapping occurrence counts (int32[N]) of (N, T) probe tables over
+    the layout's packed windows ``pw`` (g, rows, 128) — the same
+    ``probe_acc`` math as :func:`find_batched_cols` with a masked sum in
+    place of the first-offset min."""
+    return _count_batched_impl(
+        pw,
+        jnp.asarray(values, jnp.uint32),
+        jnp.asarray(masks, jnp.uint32),
+        jnp.asarray(ends, jnp.int32),
+        s,
+    )
+
+
+@functools.partial(jax.jit, static_argnums=(3,))
+def _memchr_impl(cols, byte, end, s):
+    seg = s * 128
+    tile = cols[:, :s, :]
+    pos = (
+        jax.lax.broadcasted_iota(jnp.int32, tile.shape, 0) * seg
+        + segment_positions(s)[None]
+    )
+    hit = jnp.logical_and(tile == byte, pos < end)
+    return jnp.min(jnp.where(hit, pos, SENTINEL))
+
+
+def memchr_cols(cols, byte: int, end, s: int):
+    """First offset of one byte over the tiled uint8 layout (SENTINEL when
+    absent): one fused ``min(where(byte == b, pos, SENTINEL))`` over every
+    position, the 1-byte rung of the dispatch ladder."""
+    return _memchr_impl(
+        cols, jnp.asarray(byte, jnp.uint8), jnp.asarray(end, jnp.int32), s
+    )
+
+
 @jax.jit
 def _find_batched_flat_impl(flat, values, masks, ends):
     def one(vals, msks, end):
@@ -191,6 +245,12 @@ def match_bitmap_batched(cols, values, masks, ends, s: int):
     )
 
 
+#: Segments per step of the compact-positions walk: bounds its live
+#: per-position temporaries (a top_k input cannot fuse away) to
+#: batch x COMPACT_SEGS x segment positions instead of the whole corpus.
+COMPACT_SEGS = 16
+
+
 @functools.partial(jax.jit, static_argnums=(4, 5))
 def _compact_positions_impl(cols, values, masks, end, s, cap):
     """Single needle: (count, the ``cap`` smallest valid match offsets,
@@ -199,7 +259,8 @@ def _compact_positions_impl(cols, values, masks, end, s, cap):
     t_num = values.shape[0]
     k_seg = min(cap, seg)
 
-    def one_seg(tile, g_idx):
+    def one_seg(args):
+        tile, g_idx = args
         p = packed_windows(tile)
         probes = [(4 * t, values[t], masks[t]) for t in range(t_num)]
         acc = probe_acc(value_slicer(p, s), probes)  # (s, 128) bool
@@ -211,7 +272,9 @@ def _compact_positions_impl(cols, values, masks, end, s, cap):
         # (descending -pos == ascending pos).
         return cnt, -jax.lax.top_k(-flat, k_seg)[0]
 
-    counts, parts = jax.vmap(one_seg)(cols, jnp.arange(cols.shape[0]))
+    counts, parts = jax.lax.map(
+        one_seg, (cols, jnp.arange(cols.shape[0])), batch_size=COMPACT_SEGS
+    )
     allp = parts.reshape(-1)
     k = min(cap, allp.size)
     top = -jax.lax.top_k(-allp, k)[0]

@@ -1,6 +1,6 @@
 """Multi-host process setup — the jax.distributed wrapper layer
-(BASELINE.json: "multi-host pod slice ... match flags reduced via ICI
-collectives"; DCN spans slices).
+(BASELINE.json: multi-host corpus sharding with match flags reduced via
+collectives).
 
 The scan itself needs nothing beyond shard_scan.py: `jax.distributed`
 initialization makes every host's chips part of one global mesh, and
@@ -30,8 +30,8 @@ def initialize(
 ) -> None:
     """Initialize multi-host JAX (no-op when single-process).
 
-    On TPU pods the arguments are auto-detected from the environment;
-    explicit values support manual/CPU bring-up.
+    Pass ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly: nothing here detects a cluster.
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -7,7 +7,7 @@ state.  The natural mesh is 2-D:
 
 * ``data`` axis — corpus segments sharded (the byte-stream analogue of
   sequence/context parallelism); collectives: a single ``pmin`` per query
-  batch over ICI.
+  batch.
 * ``needle`` axis — query batch sharded (embarrassingly parallel); needle
   tables are small, so this axis simply partitions work.
 """

@@ -40,17 +40,18 @@ def predicted_efficiency(
     bytes_per_shard: int,
     scan_gbps: float = 666.0,
     allreduce_bytes: int = 2 * 4 * 4096,
-    ici_gbps: float = 50.0,
+    link_gbps: float = 50.0,
 ) -> float:
     """Cost-model efficiency bound: granularity skew x communication term
     (tiny collectives per query batch vs B/n bytes of scan per chip).
-    Defaults: the measured never-match fullscan rate (the conservative,
-    data-independent regime), a mid-range ICI bandwidth, and the find
+    Defaults: an assumed never-match fullscan rate (the conservative,
+    data-independent regime), a mid-range interconnect bandwidth, and the
+    find
     reduction's real traffic — two int32 ``pmin``s per needle (the
     lexicographic (shard, local-offset) combine; counts are a two-limb
     ``psum``, same 2x4xN bytes)."""
     scan_s = bytes_per_shard / (scan_gbps * 1e9)
-    comm_s = allreduce_bytes / (ici_gbps * 1e9)
+    comm_s = allreduce_bytes / (link_gbps * 1e9)
     return granularity_efficiency(g, n) * scan_s / (scan_s + comm_s)
 
 

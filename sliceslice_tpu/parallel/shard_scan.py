@@ -1,13 +1,13 @@
 """Distributed corpus scanner — the new L5 layer (absent in the single-core
 reference; specified by BASELINE.json: corpus sharded data-parallel, needle
-tables replicated, match flags/offsets reduced via ICI collectives).
+tables replicated, match flags/offsets reduced via collectives).
 
 Because layout segments are self-contained (each carries its own halo bytes,
 ops/layout.py), sharding the segment axis requires NO neighbor communication:
-each chip scans its shard with the same Pallas kernel the single-chip path
-uses, computing *shard-local* int32 offsets, and the global first match is
-a lexicographic minimum over (shard index, local offset) — two tiny int32
-``pmin``s per query batch over ICI.  Device math never leaves int32, so
+each device scans its shard with the same Pallas kernel the single-device
+path uses, computing *shard-local* int32 offsets, and the global first
+match is a lexicographic minimum over (shard index, local offset) — two
+tiny int32 ``pmin``s per query batch.  Device math never leaves int32, so
 global corpora beyond the 2 GiB int32 range are exact (the reference is
 offset-size agnostic via usize, src/lib.rs:253-287): when the combined
 offset ``shard * shard_bytes + local`` fits int32 it is produced on device
@@ -21,19 +21,12 @@ local ends.
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
-
-from .. import config
 from ..ops import scan_kernel
 from ..ops.layout import LANES, DeviceHaystack
 from ..ops.scan_math import SENTINEL
@@ -45,19 +38,7 @@ def _round_up(x: int, m: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _sharded_call(
-    mesh: Mesh,
-    g_pad: int,
-    h: int,
-    s: int,
-    t: int,
-    nblk: int,
-    n_pad: int,
-    interpret: bool,
-    pen_full: bool = False,
-    n_real: int | None = None,
-    fits32: bool = True,
-):
+def _sharded_call(mesh: Mesh, s: int, shard_bytes: int, fits32: bool):
     """Sharded find.  ``ends`` arrive as a (n_data, n_pad) int32 matrix of
     shard-LOCAL valid-position bounds (``clip(end_global - shard_base, 0,
     shard_bytes)``, computed in int64 on host) so the kernel and the
@@ -68,30 +49,13 @@ def _sharded_call(
     fit int32) the combine ``shard * shard_bytes + local`` happens on device
     and the output matches round 1's API; otherwise the (2, n) component
     pair is returned for the int64 host combine."""
-    n_data = mesh.shape[DATA_AXIS]
-    n_needle = mesh.shape[NEEDLE_AXIS]
-    g_local = g_pad // n_data
-    n_local = n_pad // n_needle
-    seg = s * LANES
-    shard_bytes = g_local * seg
-    raw = scan_kernel._raw_batched_call(
-        g_local, h, s, t, nblk, n_local, interpret, pen_full,
-        n_real=n_real,
-    )
 
     def local_fn(pw_l, vals_l, msks_l, ends_l):
         shard = jax.lax.axis_index(DATA_AXIS).astype(jnp.int32)
-        base0 = jnp.zeros((1,), jnp.int32)  # kernel offsets are shard-local
-        # Global row offset of this needle shard: the kernel skips padded
-        # rows (>= n_real) from its unfound list.
-        row0 = (
-            jax.lax.axis_index(NEEDLE_AXIS) * n_local
-        ).astype(jnp.int32).reshape(1)
-        out = raw(vals_l, msks_l, base0, row0, pw_l)  # (n_local, LANES)
-        local = jnp.min(out, axis=-1)
+        local = scan_kernel.find_raw(vals_l, msks_l, pw_l, s)
         has = local < ends_l.reshape(-1)
-        # The collectives of the whole workload (ride ICI; one int32 per
-        # needle each): winning shard index, then the winner's local offset.
+        # The collectives of the whole workload (one int32 per needle
+        # each): winning shard index, then the winner's local offset.
         key = jnp.where(has, shard, jnp.int32(SENTINEL))
         kmin = jax.lax.pmin(key, DATA_AXIS)
         lo = jnp.where(
@@ -104,7 +68,37 @@ def _sharded_call(
             )
         return jnp.stack([kmin, lmin])
 
-    fn = shard_map(
+    return _shard_jit(mesh, local_fn, fits32)
+
+
+@functools.lru_cache(maxsize=64)
+def _sharded_count_call(mesh: Mesh, s: int, fits32: bool):
+    """Distributed occurrence count: local count per shard (valid-position
+    bound applied with shard-LOCAL ends), then a ``psum`` over the data
+    axis (exactly-once at shard boundaries follows from positions
+    belonging to the shard where the match starts; halo bytes are
+    read-only context).  Per-shard counts always fit int32 (a shard holds
+    < 2^31 positions); when the GLOBAL total might not (``not fits32``) the
+    psum runs on two int32 limbs (hi = count >> 16, lo = count & 0xffff —
+    exact for up to 2^15 shards) and the int64 recombine happens on host."""
+
+    def local_fn(pw_l, vals_l, msks_l, ends_l):
+        counts = scan_kernel.count_raw(
+            vals_l, msks_l, ends_l.reshape(-1), pw_l, s
+        )
+        if fits32:
+            return jax.lax.psum(counts, DATA_AXIS)
+        hi = jax.lax.psum(counts >> 16, DATA_AXIS)
+        lo = jax.lax.psum(counts & 0xFFFF, DATA_AXIS)
+        return jnp.stack([hi, lo])
+
+    return _shard_jit(mesh, local_fn, fits32)
+
+
+def _shard_jit(mesh: Mesh, local_fn, fits32: bool):
+    """Corpus windows on the data axis, needle tables on the needle axis,
+    (data, needle) ends; per-needle results on the needle axis."""
+    fn = jax.shard_map(
         local_fn,
         mesh=mesh,
         in_specs=(
@@ -120,78 +114,14 @@ def _sharded_call(
     return jax.jit(fn)
 
 
-@functools.lru_cache(maxsize=64)
-def _sharded_count_call(
-    mesh: Mesh,
-    g_pad: int,
-    h: int,
-    s: int,
-    t: int,
-    nblk: int,
-    n_pad: int,
-    interpret: bool,
-    pen_full: bool = False,
-    n_real: int | None = None,
-    fits32: bool = True,
-):
-    """Distributed occurrence count: local count kernel per shard (in-kernel
-    valid-position bound applied with shard-LOCAL ends), then a ``psum``
-    over the data axis (exactly-once at shard boundaries follows from
-    positions belonging to the shard where the match starts; halo bytes are
-    read-only context).  Per-shard counts always fit int32 (a shard holds
-    < 2^31 positions); when the GLOBAL total might not (``not fits32``) the
-    psum runs on two int32 limbs (hi = count >> 16, lo = count & 0xffff —
-    exact for up to 2^15 shards) and the int64 recombine happens on host."""
-    n_data = mesh.shape[DATA_AXIS]
-    n_needle = mesh.shape[NEEDLE_AXIS]
-    n_local = n_pad // n_needle
-    g_local = g_pad // n_data
-    raw = scan_kernel._raw_count_call(
-        g_local, h, s, t, nblk, n_local, interpret, pen_full,
-        n_real=n_real,
-    )
-
-    def local_fn(pw_l, vals_l, msks_l, ends_l):
-        base0 = jnp.zeros((1,), jnp.int32)  # kernel offsets are shard-local
-        row0 = (
-            jax.lax.axis_index(NEEDLE_AXIS) * n_local
-        ).astype(jnp.int32).reshape(1)
-        out = raw(
-            vals_l, msks_l, ends_l.reshape(-1, 1), base0, row0, pw_l
-        )
-        counts = jnp.sum(out, axis=-1)
-        if fits32:
-            return jax.lax.psum(counts, DATA_AXIS)
-        hi = jax.lax.psum(counts >> 16, DATA_AXIS)
-        lo = jax.lax.psum(counts & 0xFFFF, DATA_AXIS)
-        return jnp.stack([hi, lo])
-
-    fn = shard_map(
-        local_fn,
-        mesh=mesh,
-        in_specs=(
-            P(DATA_AXIS, None, None),
-            P(NEEDLE_AXIS, None),
-            P(NEEDLE_AXIS, None),
-            P(DATA_AXIS, NEEDLE_AXIS),
-        ),
-        out_specs=P(NEEDLE_AXIS) if fits32 else P(None, NEEDLE_AXIS),
-        check_vma=False,
-    )
-    return jax.jit(fn)
-
-
 def sharded_find_cols(
     dh: DeviceHaystack,
-    values: np.ndarray,
-    masks: np.ndarray,
-    ends: np.ndarray,
+    values,
+    masks,
+    ends,
     mesh: Mesh,
-    nblk: Optional[int] = None,
-    interpret: Optional[bool] = None,
     mode: str = "find",
     force_int64: bool = False,
-    assume_homogeneous: bool = False,
 ):
     """Exact global first-match offsets of N needles over a segment-sharded
     corpus on ``mesh`` (``mode="count"``: overlapping occurrence counts
@@ -204,149 +134,32 @@ def sharded_find_cols(
     (int64-safe) per-needle bounds; the kernels only see shard-local clipped
     int32 ends.
 
-    Accepts mixed-width probe tables: rows are regrouped by effective width
-    (the scan kernels require homogeneous tables — every slot but the last
-    full-mask) and the groups' results merged on device.
+    Tables may mix probe widths: every slot compares under its mask, and
+    all-zero padding rows (end 0) report nothing.  Device-resident tables
+    stay on device.
 
     ``force_int64`` forces the >2 GiB component-pair path on any corpus so
     tests can exercise it without materializing gigabytes.
-
-    ``assume_homogeneous``: caller guarantees a grouped-builder table (one
-    effective width == the table width, plus optional all-zero padding
-    rows) — skips the width detection, and with device-resident tables the
-    host readback it would cost (the ShardedBatchedSearcher hot path).
     """
-    if assume_homogeneous:
-        return _sharded_homogeneous(
-            dh, values, masks, ends, mesh, nblk, interpret, mode,
-            force_int64,
-        )
-    values_np = np.asarray(values)
-    masks_np = np.asarray(masks)
-    eff = (masks_np != 0).sum(axis=1)  # active slots are contiguous from 0
-    real = eff > 0  # all-zero rows are padding (end 0 — never match)
-    if (eff[real] == values_np.shape[1]).all():
-        # Homogeneous (padding rows ride along; the kernels tolerate them).
-        # Pass the ORIGINAL arrays through (device-resident tables stay on
-        # device — no re-upload per call) with the host copies (already
-        # materialized for width detection) supplied separately so the
-        # premask/width-contract guards still run even for device-array
-        # inputs with exotic final masks.
-        return _sharded_homogeneous(
-            dh, values, masks, ends, mesh, nblk, interpret, mode,
-            force_int64, masks_np=masks_np,
-        )
-    ends_np = np.asarray(ends)
-    n = values_np.shape[0]
-    order = []
-    parts = []
-    for w in np.unique(eff[real]):
-        idx = np.nonzero(eff == w)[0]
-        w_eff = max(int(w), 1)
-        parts.append(
-            _sharded_homogeneous(
-                dh,
-                values_np[idx, :w_eff],
-                masks_np[idx, :w_eff],
-                ends_np[idx],
-                mesh,
-                nblk,
-                interpret,
-                mode,
-                force_int64,
-            )
-        )
-        order.append(idx)
-    # Padding rows are in no width class: they stay at the no-match init.
-    if parts and isinstance(parts[0], np.ndarray):
-        # >2 GiB corpora: parts are host int64 — merge on host.
-        out = np.full((n,), -1 if mode == "find" else 0, np.int64)
-        for idx, p in zip(order, parts):
-            out[idx] = p
-        return out
-    init = SENTINEL if mode == "find" else 0
-    order = jnp.asarray(np.concatenate(order), jnp.int32)
-    merged = jnp.concatenate([jnp.asarray(p) for p in parts])
-    return jnp.full((n,), init, jnp.int32).at[order].set(merged)
-
-
-def sharded_count_cols(
-    dh: DeviceHaystack,
-    values: np.ndarray,
-    masks: np.ndarray,
-    ends: np.ndarray,
-    mesh: Mesh,
-    nblk: Optional[int] = None,
-    interpret: Optional[bool] = None,
-    force_int64: bool = False,
-    assume_homogeneous: bool = False,
-):
-    """Overlapping occurrence counts over a segment-sharded corpus — the
-    count analogue of :func:`sharded_find_cols` (device int32 when the
-    corpus fits int32 positions, host int64 ndarray past 2 GiB)."""
-    return sharded_find_cols(
-        dh, values, masks, ends, mesh, nblk, interpret, mode="count",
-        force_int64=force_int64, assume_homogeneous=assume_homogeneous,
-    )
-
-
-def _sharded_homogeneous(
-    dh: DeviceHaystack,
-    values,
-    masks,
-    ends,
-    mesh: Mesh,
-    nblk: Optional[int] = None,
-    interpret: Optional[bool] = None,
-    mode: str = "find",
-    force_int64: bool = False,
-    masks_np: Optional[np.ndarray] = None,
-):
     if not dh.tiled:
         raise ValueError("sharded scan requires a tiled (cols) layout")
     pw = dh.windows()
     g, rows, lanes = pw.shape
-    h = rows + 3  # cols row count (s + halo); pw carries h-3 window rows
     assert lanes == LANES
     # Global ends in int64 (corpora past 2 GiB overflow int32); the kernels
     # only ever see the shard-local clipped int32 matrix built below.
     ends64 = np.asarray(ends, dtype=np.int64)
-    # Homogeneous tables (regrouped by effective width above, or passed as
-    # such) have full masks on every slot below the final one.  Caller-built
-    # host tables with exotic final masks (non-byte-prefix) can't ride the
-    # premasked-window path — clear pen_full so the kernel keeps the exact
-    # masked compare (device-array tables come from build_probe_table and
-    # satisfy the prefix contract by construction).
-    pen_full = values.shape[1] <= scan_kernel.PROBE_UNROLL
-    if masks_np is None and isinstance(masks, np.ndarray):
-        masks_np = masks
-    if masks_np is not None:
-        if pen_full and not scan_kernel._premask_classes_ok(masks_np):
-            pen_full = False
-        # Same contract guard as the single-chip entry points: a partial
-        # mask below the masked tail would compare unmasked in-kernel.
-        scan_kernel._check_width_contract(
-            masks_np, values.shape[1], pen_full, False
-        )
     masks = jnp.asarray(masks, jnp.uint32)
     # Kernels use the 2-op (w & m) == v compare; re-mask defensively in case
     # a caller-built table is not pre-masked (build_probe_table tables are).
     values = jnp.asarray(values, jnp.uint32) & masks
     n, t = values.shape
-    if t > scan_kernel.PROBE_UNROLL and t % 2:
-        # The long-needle kernel loops probe *pairs*; a mask-0 slot is a no-op.
-        values = jnp.pad(values, ((0, 0), (0, 1)))
-        masks = jnp.pad(masks, ((0, 0), (0, 1)))
-        t += 1
-    # Probe slots must fit the layout halo (same precondition as
-    # batched_find_cols — the kernel's window slices read h-3 packed rows).
-    assert 4 * t - 1 <= h - dh.s, (
-        f"probe table width {t} needs {4 * t - 1} halo bytes, layout has "
-        f"{h - dh.s}"
-    )
+    if 4 * (t - 1) + dh.s > rows:
+        raise ValueError(
+            f"probe table width {t} needs {4 * t - 1} halo bytes, layout "
+            f"has {dh.kh}"
+        )
     n_data = mesh.shape[DATA_AXIS]
-    n_needle = mesh.shape[NEEDLE_AXIS]
-
     g_pad = _round_up(g, n_data)
     if g_pad != g:
         # All-pad segments: their positions lie beyond every needle's end.
@@ -361,14 +174,7 @@ def _sharded_homogeneous(
     # Device offsets are shard-local int32; the combined global offset rides
     # int32 on device only when the whole (padded) corpus fits.
     fits32 = g_pad * seg <= SENTINEL and not force_int64
-    # Same SMEM-budget cap as scan_kernel.plan_block: two (nblk, t) uint32
-    # tables per block — long-needle tables must shrink the block.
-    cap = max(8, min(256, _round_up(2048 // max(t, 1), 8)))
-    nblk = nblk or min(
-        config.NEEDLE_BLOCK, cap, _round_up(max(n // n_needle, 1), 8)
-    )
-    nblk = min(nblk, cap)
-    n_pad = _round_up(n, n_needle * nblk)
+    n_pad = scan_kernel.plan_block(n, mesh.shape[NEEDLE_AXIS])
     if n_pad != n:
         values = jnp.pad(values, ((0, n_pad - n), (0, 0)))
         masks = jnp.pad(masks, ((0, n_pad - n), (0, 0)))
@@ -379,14 +185,10 @@ def _sharded_homogeneous(
     ends2d = np.clip(
         ends64[None, :] - bases[:, None], 0, shard_bytes
     ).astype(np.int32)
-    if interpret is None:
-        interpret = config.use_interpret()
-
-    builder = _sharded_call if mode == "find" else _sharded_count_call
-    run = builder(
-        mesh, g_pad, h, dh.s, t, nblk, n_pad, interpret, pen_full,
-        n_real=n, fits32=fits32,
-    )
+    if mode == "find":
+        run = _sharded_call(mesh, dh.s, shard_bytes, fits32)
+    else:
+        run = _sharded_count_call(mesh, dh.s, fits32)
     pw = jax.device_put(pw, corpus_sharding(mesh))
     values = jax.device_put(values, table_sharding(mesh))
     masks = jax.device_put(masks, table_sharding(mesh))
@@ -404,6 +206,22 @@ def _sharded_homogeneous(
         return np.where(kmin < SENTINEL, kmin * shard_bytes + lmin, -1)
     hi, lo = pair
     return (hi << 16) + lo
+
+
+def sharded_count_cols(
+    dh: DeviceHaystack,
+    values,
+    masks,
+    ends,
+    mesh: Mesh,
+    force_int64: bool = False,
+):
+    """Overlapping occurrence counts over a segment-sharded corpus — the
+    count analogue of :func:`sharded_find_cols` (device int32 when the
+    corpus fits int32 positions, host int64 ndarray past 2 GiB)."""
+    return sharded_find_cols(
+        dh, values, masks, ends, mesh, mode="count", force_int64=force_int64
+    )
 
 
 def _to_host(arr) -> np.ndarray:
@@ -431,7 +249,7 @@ def _sharded_bitmap_call(mesh: Mesh, s: int, n_pad: int, t: int):
             cols_l, vals, msks, ends_l.reshape(-1), s
         )
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local_fn,
         mesh=mesh,
         in_specs=(
@@ -461,7 +279,7 @@ def _sharded_compact_call(mesh: Mesh, s: int, n_pad: int, t: int, cap: int):
         )
         return cnt.reshape(-1, 1), pos.reshape(pos.shape[0], 1, cap)
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local_fn,
         mesh=mesh,
         in_specs=(
@@ -710,7 +528,7 @@ class ShardedBatchedSearcher:
         for grp in self.inner.groups:
             grp.sync_host()  # device-side reorders materialize lazily
             # Ends stay HOST int64 (global bounds past 2 GiB don't fit
-            # int32); _sharded_homogeneous clips them to per-shard int32.
+            # int32); sharded_find_cols clips them to per-shard int32.
             ends64 = np.maximum(
                 np.int64(hay_len) - grp.lengths.astype(np.int64) + 1, 0
             )
@@ -759,12 +577,8 @@ class ShardedBatchedSearcher:
         parts = []
         blobs = []
         for grp, (v, m, e) in zip(self.inner.groups, tabs):
-            # Grouped tables are homogeneous-width by construction (padding
-            # rows have end 0): skip width detection and its device->host
-            # table readback.
             parts.append(
-                fn(dh, v, m, e, self.mesh, force_int64=self.force_int64,
-                   assume_homogeneous=True)
+                fn(dh, v, m, e, self.mesh, force_int64=self.force_int64)
             )
             blobs.append(grp.indices.tobytes())
         if parts and isinstance(parts[0], np.ndarray):
@@ -857,10 +671,7 @@ class ShardedBatchedSearcher:
             # process — all processes take the same branch.
             ncand = int(
                 np.asarray(
-                    sharded_count_cols(
-                        dh, vals, msks, ends, self.mesh,
-                        assume_homogeneous=True,
-                    )
+                    sharded_count_cols(dh, vals, msks, ends, self.mesh)
                 ).reshape(-1)[0]
             )
             if ncand > HOST_VERIFY_MAX:

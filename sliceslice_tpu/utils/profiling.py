@@ -1,17 +1,46 @@
 """Criterion-analogue measurement harness (reference: criterion benches,
 bench/benches/i386.rs): warmup, repeated samples, low/estimate/high from the
-sample distribution, plus achieved-bandwidth derivation against the HBM
-roofline — the dual-metric idea (wall time + hardware-counter-like metric)
+sample distribution, plus achieved bandwidth against the device's published
+memory peak — the dual-metric idea (wall time + hardware-counter-like metric)
 from the reference's perf-event benches (SURVEY.md §5.1)."""
 
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 import time
 from typing import Callable, Optional
 
-#: HBM bandwidth roofline, bytes/s (TPU v5e ~819 GB/s).
-HBM_ROOFLINE = {"tpu v5": 819e9, "tpu v4": 1228e9, "tpu v6": 1640e9}
+#: Published device-memory bandwidth, bytes/s, keyed by JAX's
+#: ``device_kind``.  Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5
+#: part (80 GB HBM3 at 3.35 TB/s).
+PEAK_MEMORY_BYTES_PER_S = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
+
+
+def peak_memory_bandwidth(device_kind: str) -> float:
+    """Published memory peak (bytes/s) of a device kind; an unknown kind is
+    an error, never a default."""
+    try:
+        return PEAK_MEMORY_BYTES_PER_S[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published memory peak for device kind {device_kind!r}; "
+            "add it to PEAK_MEMORY_BYTES_PER_S with its source"
+        ) from None
+
+
+def card_line() -> str:
+    """``name, power.limit`` of every card, as nvidia-smi reports them — a
+    card may run below its maximum power limit, so every device number is
+    reported beside this."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout
+    return "; ".join(line.strip() for line in out.splitlines() if line.strip())
 
 
 @dataclasses.dataclass
@@ -65,10 +94,10 @@ def measure(
     return Measurement(name, out, bytes_processed)
 
 
-def trace(fn, logdir: str = "/tmp/sliceslice_tpu_trace"):
+def trace(fn, logdir: str):
     """Capture a jax.profiler trace of one invocation (SURVEY.md §5.1: the
-    TPU-side observability story — per-kernel wall time and HBM counters in
-    TensorBoard/xprof instead of Linux perf events)."""
+    device-side observability story — per-kernel device time from the
+    trace instead of Linux perf events)."""
     import jax
 
     with jax.profiler.trace(logdir):

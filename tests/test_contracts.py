@@ -81,10 +81,9 @@ def test_inlined_alias():
 
 def test_exotic_final_mask_pen_full_exact():
     """Caller-built tables whose final mask is NOT a little-endian byte
-    prefix must stay exact under pen_full: the premasked-window path cannot
-    classify them, so the kernel falls back to the per-needle masked
-    compare (r2 regression: premask misclassified 0xFFFF0000 and returned
-    a false negative)."""
+    prefix stay exact: every probe slot compares under its own mask (r2
+    regression: a premasked-window shortcut misclassified 0xFFFF0000 and
+    returned a false negative)."""
     import struct
 
     from sliceslice_tpu.needle import build_probe_table
@@ -103,17 +102,15 @@ def test_exotic_final_mask_pen_full_exact():
     values = np.array([[v0, v1 & 0xFFFF0000]], np.uint32)
     masks = np.array([[0xFFFFFFFF, 0xFFFF0000]], np.uint32)
     ends = np.array([len(hay) - 8 + 1], np.int32)
-    for pen_full in (False, True):
-        got = int(
-            np.asarray(
-                scan_kernel.batched_find_cols(
-                    None, values, masks, ends, s=dh.s,
-                    pen_full=pen_full, pw=dh.windows(),
-                )
-            )[0]
-        )
-        assert got == 123_456, (pen_full, got)
-    # And through the sharded entry (which sets pen_full itself).
+    got = int(
+        np.asarray(
+            scan_kernel.batched_find_cols(
+                None, values, masks, ends, s=dh.s, pw=dh.windows()
+            )
+        )[0]
+    )
+    assert got == 123_456
+    # And through the sharded entry.
     import jax
 
     if len(jax.devices()) >= 2:
@@ -124,14 +121,13 @@ def test_exotic_final_mask_pen_full_exact():
             np.asarray(sharded_find_cols(dh, values, masks, ends, mesh))[0]
         )
         assert got == 123_456
-    # Prefix masks (the build_probe_table contract) keep riding premask.
+    # Prefix masks (the build_probe_table contract).
     vals2, msks2, lens2 = build_probe_table([b"QRSTUVW"])  # k=7: mask 0xFFFFFF
     ends2 = np.array([len(hay) - 7 + 1], np.int32)
     got = int(
         np.asarray(
             scan_kernel.batched_find_cols(
-                None, vals2, msks2, ends2, s=dh.s,
-                pen_full=True, pw=dh.windows(),
+                None, vals2, msks2, ends2, s=dh.s, pw=dh.windows()
             )
         )[0]
     )
@@ -140,25 +136,35 @@ def test_exotic_final_mask_pen_full_exact():
 
 def test_width_gap_table_raises():
     """A mixed-width table straight from build_probe_table (width gap >= 2)
-    violates the kernel contract and must raise, not silently false-negative
-    (r2 regression: a k=4 row in a t=4 table passed the old guard and its
-    zero-mask slots compared unmasked)."""
+    once raised, because the kernels compared non-final slots unmasked (r2
+    regression: a k=4 row in a t=4 table false-negatived).  Every slot now
+    compares under its mask, so such a table must give exact find and
+    count results instead."""
     from sliceslice_tpu.needle import build_probe_table
     from sliceslice_tpu.ops import scan_kernel
     from sliceslice_tpu.ops.layout import preprocess
+    from sliceslice_tpu.searcher import overlapping_count
 
     hay = b"xxxxabcdyyyy" + bytes(20_000) + b"0123456789abcdef" + bytes(100)
     dh = preprocess(hay, kh=16, force_cols=True)
-    values, masks, lengths = build_probe_table([b"abcd", b"0123456789abcdef"])
+    needles = [b"abcd", b"0123456789abcdef"]
+    values, masks, lengths = build_probe_table(needles)
     ends = np.maximum(len(hay) - lengths + 1, 0).astype(np.int32)
-    for fn in (scan_kernel.batched_find_cols, scan_kernel.batched_count_cols):
-        with pytest.raises(ValueError, match="width contract"):
-            fn(None, values, masks, ends, s=dh.s, pw=dh.windows())
+    first = scan_kernel.batched_find_cols(
+        None, values, masks, ends, s=dh.s, pw=dh.windows()
+    )
+    assert list(np.asarray(first)) == [hay.find(nd) for nd in needles]
+    counts = scan_kernel.batched_count_cols(
+        None, values, masks, ends, s=dh.s, pw=dh.windows()
+    )
+    assert list(np.asarray(counts)) == [
+        overlapping_count(hay, nd) for nd in needles
+    ]
 
 
 def test_sharded_width_gap_regroups_exactly():
-    """The sharded entry point regroups mixed widths instead of raising —
-    and padding rows (all-zero masks) ride along without a spurious group."""
+    """The sharded entry point takes mixed widths in one table — and
+    padding rows (all-zero masks, end 0) report nothing."""
     import jax
 
     if len(jax.devices()) < 4:

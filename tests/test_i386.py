@@ -1,7 +1,7 @@
 """Conformance against the reference corpus (tests/i386.rs analogue).
 
 The full sweeps (every word x 857 KB manual; all ~10.5M word pairs) are
-@slow — run on TPU.  The default suite runs oracle-differential samples of
+@slow — run on the GPU.  The default suite runs oracle-differential samples of
 both sweeps under the interpreter, hitting every dispatch rung.
 """
 

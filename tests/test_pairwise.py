@@ -69,7 +69,7 @@ def test_count_matches_device(rng):
 
 
 def test_pairwise_pallas_block_differential(rng):
-    """The Pallas pair-block (TPU hot path) against the oracle and the
+    """The Pallas pair-block (the GPU hot path) against the oracle and the
     portable XLA formulation, via the Pallas interpreter — the same
     wasmtime-style coverage the kernel tests use."""
     ws = random_words(rng, 35, max_len=14)

@@ -12,8 +12,7 @@ import pytest
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8,
-    reason="needs an 8-device mesh (virtual CPU devices; run without "
-    "SLICESLICE_TEST_TPU on a single chip)",
+    reason="needs an 8-device mesh (the suite's virtual CPU devices)",
 )
 
 

@@ -45,7 +45,7 @@ def test_streaming_int64_offsets_past_2gib():
     """Offsets beyond the int32 range are exact through the PUBLIC API:
     device math is window-local int32, the global base folds in int64 on
     host.  ``start_offset`` declares the stream's global origin, so window
-    bases cross 2^32 without materializing gigabytes (the on-chip 4.5 GiB
+    bases cross 2^32 without materializing gigabytes (the on-device 4.5 GiB
     materialized check is scripts/bigscan_check.py)."""
     from sliceslice_tpu.utils.streaming import StreamingScanner
 
